@@ -1,6 +1,7 @@
 """archon_tpu_torch -- the PyTorch/CUDA port of archon_tpu for NVIDIA Hopper.
 
-The forward BWT (``core.fast2.bwt_v3``) runs on torch tensors; its sorts go
+The forward BWT (``core.fast2.bwt_v3``), the a6 compressor (``core.a6``) and
+the device inverse BWT (``core.unbwt``) run on torch tensors; their sorts go
 through hand-written CUDA kernels (``csrc/sort.cu``: a per-tile bitonic
 sort and merge-path merge levels, ports of ``archon_tpu/ops/pallas_sort.py``)
 on CUDA tensors, and through their plain PyTorch twins on CPU tensors.
@@ -16,11 +17,14 @@ as it is, so no converter exists or is needed.
 
 Top-level API (lazily imported).  Every function that runs on a device
 takes ``device``, default ``"cuda"``, and raises when that device is
-unavailable; decoding runs on the host:
+unavailable; ``decode`` walks on the host unless given a device, and
+``decode_file`` walks on the host:
 
-    encode(data, generation, device=...)      / decode(blob, generation)
+    encode(data, generation, device=...)      / decode(blob, generation, device=None)
+    a6_encode(data, config, order, device=...) / a6_decode(blob, config, order, device=...)
     encode_file(data, generation, block_size, verify, pack, device=...)
     decode_file(blob, strict, on_error)
+    ArchonConfig                              # the JAX package's config object
 """
 
 from __future__ import annotations
@@ -30,6 +34,9 @@ _LAZY = {
     "decode": ("archon_tpu_torch.formats", "decode"),
     "encode_file": ("archon_tpu_torch.io.blocks", "encode_file"),
     "decode_file": ("archon_tpu_torch.io.blocks", "decode_file"),
+    "a6_encode": ("archon_tpu_torch.core.a6", "a6_encode"),
+    "a6_decode": ("archon_tpu_torch.core.a6", "a6_decode"),
+    "ArchonConfig": ("archon_tpu_torch.host", "ArchonConfig"),
 }
 
 __all__ = sorted(_LAZY)

@@ -3,6 +3,9 @@
 
   python -m archon_tpu_torch a4|a7 e|d <in> <out> [--no-verify] [--device D]
                                         # a4/a7-compatible single block
+  python -m archon_tpu_torch a6 <in> <out> [-c byte|fix|var] [-r N]
+                                [-o none|freq|greedy|topo|bubble] [-u] [--device D]
+                                        # a6-compatible format
   python -m archon_tpu_torch e|d <in> <out> [-g a4|a7] [-b BLOCK] [--pack]
                                 [--no-verify] [--device D]
                                         # block-streamed ATA1/ATA2 container
@@ -42,6 +45,18 @@ def _parser():
         g.add_argument("--no-verify", action="store_true",
                        help="skip the host round-trip check of the encode")
         g.add_argument("--device", default="cuda", help="torch device to encode on")
+    g6 = sub.add_parser("a6", help="a6-compatible format")
+    g6.add_argument("infile")
+    g6.add_argument("outfile")
+    g6.add_argument("-c", "--coder", default="byte", choices=["byte", "fix", "var"])
+    g6.add_argument("-r", "--radix", type=int, default=16,
+                    help="accepted for reference compatibility; output is radix-independent")
+    g6.add_argument("-o", "--order", default="none",
+                    choices=["none", "freq", "greedy", "topo", "bubble"],
+                    help="alphabet reorder heuristic; other than none it writes an "
+                    "extension blob carrying the 256-byte table")
+    g6.add_argument("-u", "--unpack", action="store_true")
+    g6.add_argument("--device", default="cuda", help="torch device to run on")
     for mode in ("e", "d"):
         gb = sub.add_parser(mode, help="block-streamed container")
         gb.add_argument("infile")
@@ -60,11 +75,14 @@ def _parser():
 def _config_from_args(args) -> ArchonConfig:
     cfg = ArchonConfig()
     cfg.generation = getattr(args, "generation", None) or (
-        args.cmd if args.cmd in ("a4", "a7") else "a4"
+        args.cmd if args.cmd in ("a4", "a6", "a7") else "a4"
     )
     cfg.verify = not getattr(args, "no_verify", False)
     cfg.block_size = getattr(args, "block_size", None) or cfg.block_size
     cfg.pack = getattr(args, "pack", False)
+    cfg.coder = getattr(args, "coder", cfg.coder)
+    cfg.order = getattr(args, "order", cfg.order)
+    cfg.radix = getattr(args, "radix", cfg.radix)
     return cfg
 
 
@@ -78,6 +96,13 @@ def main(argv=None) -> int:
             _rw_timed(args, lambda d: formats.encode(d, cfg.generation, cfg.verify, args.device))
         else:
             _rw_timed(args, lambda d: formats.decode(d, cfg.generation))
+    elif args.cmd == "a6":
+        from .core import a6
+
+        if args.unpack:
+            _rw_timed(args, lambda d: a6.a6_decode(d, cfg.coder, cfg.order, args.device))
+        else:
+            _rw_timed(args, lambda d: a6.a6_encode(d, cfg.coder, cfg.order, args.device))
     elif args.cmd == "e":
         from .io import blocks
 

@@ -1,6 +1,11 @@
-"""Forward BWT with deferred inversions (port of the ``bwt_v3`` half of
-``archon_tpu/core/fast2.py``; function names and structure are kept so each
-stage has its JAX namesake).
+"""Suffix ranks and the forward BWT (port of ``archon_tpu/core/fast2.py``;
+function names and structure are kept so each stage has its JAX namesake).
+
+Two pipelines share the stages: the rank pipeline (``_ranks_loop``: a
+bootstrap that inverts its ranks, full rounds that invert every round, the
+narrowed cascade; ``suffix_ranks_windows`` seeds it with caller windows for
+the a6 bit path) and ``bwt_v3`` (inversions deferred, the previous byte
+carried through every sort).
 
 Every ``lax.sort`` site becomes ``ops.sort.sort_operands``, a stable sort: on
 CUDA tensors it runs the Hopper tile-sort and merge-level kernels.  The
@@ -12,6 +17,7 @@ drops them; ``index_put_`` would fault).  Every key is int32.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..ops.scan import blocked_cummax
@@ -68,6 +74,117 @@ def _trigram_keys(data: torch.Tensor, sentinel: str) -> torch.Tensor:
     )
 
 
+def _bootstrap_round(data: torch.Tensor, sentinel: str):
+    """Context-12 sort on four packed-trigram keys, with the rank inversion:
+    (rank, nactive, sorted_idx, ranks_sorted, active flags)."""
+    n = data.shape[0]
+    p27 = _trigram_keys(data, sentinel)
+    return _inverted_round([p27[3 * j : 3 * j + n] for j in range(4)])
+
+
+def _inverted_round(keys):
+    """Sort ``keys`` with the index riding along, then the epilogue and the
+    rank inversion: (rank, nactive, sorted_idx, ranks_sorted, active flags)."""
+    iota = _iota(keys[0].shape[0], keys[0].device)
+    *ks, sorted_idx = _sort_ctx(keys, iota, ())
+    ranks_sorted, active_s, nactive = _epilogue(ks, iota)
+    return _invert_permutation(sorted_idx, ranks_sorted), nactive, sorted_idx, ranks_sorted, active_s
+
+
+def _quad_keys(rank: torch.Tensor, k: int, sentinel: str):
+    """The quadrupling round's keys (rank[p], rank[p+k], rank[p+2k],
+    rank[p+3k]), off_end past the end."""
+    n = rank.shape[0]
+    off_end = -1 if sentinel == SENT_SMALL else n + 1
+    padded = torch.cat([rank, torch.full((n,), off_end, dtype=_I32, device=rank.device)])
+
+    def shifted(j):
+        s = min(j * k, n)
+        return padded[s : s + n]
+
+    return [rank, shifted(1), shifted(2), shifted(3)]
+
+
+def _round_full_c(rank: torch.Tensor, k: int, sentinel: str):
+    """Full-width quadrupling round that inverts its own ranks; also returns
+    the round's sorted order and active flags for a following compaction:
+    (new_rank, nactive, sorted_idx, ranks_sorted, active flags)."""
+    return _inverted_round(_quad_keys(rank, k, sentinel))
+
+
+def _ranks_loop(boot_state, k0: int, n: int, sentinel: str) -> torch.Tensor:
+    """Shared back half of the rank pipelines: full rounds while actives >
+    n/16, then the narrowed cascade.  ``boot_state`` is a bootstrap round's
+    result; ``k0`` the context it already covers."""
+    caps = _narrow_caps(n)
+    rank, na, si, rs, ac = boot_state
+    k = k0
+    while na * 16 > n and na > 0 and k < n:
+        rank, na, si, rs, ac = _round_full_c(rank, k, sentinel)
+        k *= 4
+    if na > 0 and k < n:
+        apos, ar0 = _compact_from_round(si, rs, ac, caps[0])
+        _, rank, _ = _narrow_cascade(rank, k, na, apos, ar0, sentinel, caps)
+    return rank
+
+
+def _ranks_impl(data: torch.Tensor, sentinel: str) -> torch.Tensor:
+    return _ranks_loop(_bootstrap_round(data, sentinel), 12, data.shape[0], sentinel)
+
+
+def _bootstrap_window_round(win: torch.Tensor, w: int, sentinel: str):
+    """Bootstrap from caller-supplied window keys: ``win[x]`` is an
+    order-consistent key for the ``w`` positions starting at x.  Four keys at
+    offsets 0, w, 2w, 3w give context 4w in one sort."""
+    m = win.shape[0]
+    off = -1 if sentinel == SENT_SMALL else _BIG
+    winp = torch.cat([win.to(_I32), torch.full((3 * w,), off, dtype=_I32, device=win.device)])
+    return _inverted_round([winp[j * w : j * w + m] for j in range(4)])
+
+
+def suffix_ranks_windows(win: torch.Tensor, w: int, sentinel: str = SENT_SMALL) -> torch.Tensor:
+    """Rank array of the implicit string whose order-``w`` context keys are
+    ``win`` (int32); reads past the end use the sentinel convention."""
+    m = win.shape[0]
+    if m <= 1:
+        return torch.zeros(m, dtype=_I32, device=win.device)
+    return _ranks_loop(_bootstrap_window_round(win, w, sentinel), 4 * w, m, sentinel)
+
+
+def suffix_ranks_v2(data: torch.Tensor, sentinel: str = SENT_SMALL) -> torch.Tensor:
+    """Rank array (inverse suffix array) of ``data`` (uint8)."""
+    n = data.shape[0]
+    if n <= 1:
+        return torch.zeros(n, dtype=_I32, device=data.device)
+    return _ranks_impl(data, sentinel)
+
+
+def suffix_array_v2(data: torch.Tensor, sentinel: str = SENT_SMALL) -> torch.Tensor:
+    """Suffix array of ``data`` (uint8), int32."""
+    rank = suffix_ranks_v2(data, sentinel)
+    return _invert_permutation(rank, _iota(rank.shape[0], rank.device))
+
+
+def bwt_forward_v2(data: torch.Tensor, sentinel: str = SENT_SMALL):
+    """Forward BWT through the rank pipeline and a 1-key emission sort with
+    the previous byte as payload: (L, base, rank)."""
+    rank = suffix_ranks_v2(data, sentinel)
+    _, L = sort_operands((rank,), (torch.roll(data, 1),))
+    return L, int(rank[0]) if rank.shape[0] else 0, rank
+
+
+def suffix_array_fast2(data, sentinel: str = SENT_SMALL, device="cuda"):
+    """Host convenience wrapper: bytes or a numpy uint8 array in, the suffix
+    array as a numpy int32 array out, computed on ``device``."""
+    from ..io.blocks import as_device
+
+    arr = np.asarray(data, np.uint8) if isinstance(data, np.ndarray) else np.frombuffer(
+        bytes(data), np.uint8
+    )
+    t = torch.from_numpy(arr.copy()).to(as_device(device))
+    return suffix_array_v2(t, sentinel).cpu().numpy()
+
+
 def _bootstrap_sorted(data: torch.Tensor, prev: torch.Tensor, sentinel: str):
     """Context-12 sort on four packed-trigram keys, without the rank
     inversion: (sorted_idx, ranks_sorted, active flags, nactive, prev_sorted)."""
@@ -85,19 +202,9 @@ def _round_full_sorted(si, rs, prev, k: int, sentinel: str):
     the deferred rank inversion at its top, then the 4-key sort carrying
     (iota, prev).  Also returns the inverted (context k/4) rank, the
     snapshot the micro tail refines against."""
-    n = si.shape[0]
-    iota = _iota(n, si.device)
+    iota = _iota(si.shape[0], si.device)
     rank = _invert_permutation(si, rs)
-    off_end = -1 if sentinel == SENT_SMALL else n + 1
-    padded = torch.cat([rank, torch.full((n,), off_end, dtype=_I32, device=si.device)])
-
-    def shifted(j):  # rank[p + j*k], off_end past the end
-        s = min(j * k, n)
-        return padded[s : s + n]
-
-    *ks, sorted_idx, prev_s = _sort_ctx(
-        (rank, shifted(1), shifted(2), shifted(3)), iota, (prev,)
-    )
+    *ks, sorted_idx, prev_s = _sort_ctx(_quad_keys(rank, k, sentinel), iota, (prev,))
     ranks_sorted, active_s, nactive = _epilogue(ks, iota)
     return sorted_idx, ranks_sorted, active_s, nactive, prev_s, rank
 

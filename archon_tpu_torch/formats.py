@@ -35,8 +35,10 @@ def encode(data: bytes, generation: str = "a4", verify: bool = True, device="cud
     return L.tobytes() + np.uint32(base).tobytes()
 
 
-def decode(blob: bytes, generation: str = "a4") -> bytes:
-    """Invert an a4/a7 blob on the host (native LF walk)."""
+def decode(blob: bytes, generation: str = "a4", device=None) -> bytes:
+    """Invert an a4/a7 blob.  ``device=None`` walks on the host (the native
+    LF walk); a device (e.g. ``"cuda"``) runs ``core.unbwt.bwt_inverse``
+    there, the counterpart of ``archon_tpu.formats.decode(device=True)``."""
     sentinel = _CONVENTION[generation]
     n = len(blob) - 4
     if n < 0:
@@ -47,4 +49,9 @@ def decode(blob: bytes, generation: str = "a4") -> bytes:
     base = int(np.frombuffer(blob[n:], dtype=np.uint32)[0])
     if base >= n:
         raise ValueError(f"base {base} out of range")
-    return _inverse(L, base, sentinel, native.available()).tobytes()
+    if device is None:
+        return _inverse(L, base, sentinel, native.available()).tobytes()
+    from .core.unbwt import bwt_inverse
+
+    out = bwt_inverse(torch.from_numpy(L.copy()).to(as_device(device)), base, sentinel)
+    return out.cpu().numpy().tobytes()

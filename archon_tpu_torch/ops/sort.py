@@ -38,6 +38,7 @@ from __future__ import annotations
 import torch
 
 TILE = 2048  # K1's tile, kSortTile in csrc/sort.cu: 1024 threads, 8 KiB smem
+MAX_WIDTH = 1 << 30  # sort widths must stay below this (int32 indices, padding)
 
 
 def _key_matrix(keys) -> torch.Tensor:
@@ -48,7 +49,7 @@ def _key_matrix(keys) -> torch.Tensor:
         raise TypeError(f"keys must be int32, got {keys.dtype}")
     if not keys.is_contiguous():
         raise ValueError("keys must be contiguous")
-    if keys.shape[1] >= 1 << 30:
+    if keys.shape[1] >= MAX_WIDTH:
         raise ValueError("sort width must be below 2^30")
     return keys
 

@@ -8,18 +8,33 @@ Phases, each printing its own lines; any failure exits non-zero:
 1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda.get_device_name``;
 2. build the CUDA kernels from ``archon_tpu_torch/csrc`` (nvcc, sm_90a);
 3. each kernel against its plain PyTorch twin on the card, exact equality, at
-   the shapes the forward BWT gives it, and both timed at 2^22 x 6 operands;
+   the shapes the forward BWT, a6 and the inverse give it (among them 1 key +
+   index at 2^24, and the a6 bit path's 4 window keys + index at the bit
+   width of a 1 MiB ``fix`` input); timed at 2^22 x 6 operands: K1, the last
+   K2 level, all K2 levels of one sort, the whole ``sort_operands``, each
+   beside its plain twin;
 4. the main path through ``archon_tpu_torch.encode_file``: 64 MiB of
    synthetic text in 4 MiB blocks (a4), verify on and off, and 16 MiB (a7),
    each decoded back with ``decode_file``, block 0 held against a plain numpy
    BWT (prefix doubling, below); one 1 MiB planted-repeat block through the
    micro tail and the narrowed cascade.  Kernel launch counts are zeroed just
    before the 64 MiB verify-on run and read just after it;
-5. where a block's time goes: ``bwt_v3`` on one 4 MiB text block (CUDA
+5. a6 on 16 MiB of the text: ``a6_encode``/``a6_decode`` with each coder on
+   the card (encode and decode MB/s), the ``byte`` blob of 4 MiB against the
+   a7 reference BWT, the bit path against the symbol path on 1 MiB, a
+   single-symbol ``var`` input and a ``-o freq`` round trip at 4 MiB;
+6. the device inverse: ``formats.decode(..., device="cuda")`` of a 16 MiB a4
+   and a7 block against the input and the host walk, n = 5000 and n = 1, and
+   its time split into ``lf_successor`` and ``pointer_walk`` (CUDA events)
+   beside the host walk's;
+7. where a block's time goes: ``bwt_v3`` on one 4 MiB text block (CUDA
    events), the host LF walk of one block (``decode_file``), and
    ``torch.profiler``'s self device time per op over one ``bwt_v3``, with the
    device busy share of that call;
-6. one JSON line describing the kernels, then the device line last.
+8. one JSON line describing the kernels, then the device line last.
+
+Phases 5 and 6 zero the kernel launch counts before each encode or device
+decode and fail unless both kernels launched in it.
 
 The script uses the port's own API only; its test data and its BWT
 reference are made here, from fixed seeds.
@@ -155,27 +170,71 @@ def phase_kernels():
         k[k == 1] = 0x7FFFFFFF
     check("keys of -1 and 0x7FFFFFFF", edge, [])
     check("all-equal keys", [torch.zeros(300_001, dtype=torch.int32, device=dev)] * 2, [])
+    big = 1 << 24  # a6 emission and lf_successor at 16 MiB: 1 byte key + index
+    check("1 key 0..255 + index, 2^24", keyset(big, 1, 256), [torch.arange(big, device=dev)])
+    win_keys = _bit_window_keys(synthetic_text(MIB, seed=7), dev)
+    check("a6 bit bootstrap, 4 base-3 16-windows + index, 1 MiB fix", win_keys,
+          [torch.arange(win_keys[0].shape[0], device=dev)])
 
     # timing at the full round's shape: 4 keys + index, iota and prev payloads
     mat = torch.stack(main_keys)
-    perm = S.sort_tiles(mat)
-    run = S.TILE
-    while run * 2 < perm.shape[0]:
-        perm = S.merge_level(mat, perm, run)
-        run *= 2
+    perm0 = S.sort_tiles(mat)
+
+    def levels(merge, last=0):
+        """K2 levels over K1's output, up to but not including the last
+        ``last`` levels."""
+        perm, run = perm0, S.TILE
+        while run << last < perm.shape[0]:
+            perm, run = merge(mat, perm, run), run * 2
+        return perm, run
+
+    perm, run = levels(S.merge_level, last=1)  # the input of the last level
     t = {
         "sort_tiles": (_time_ms(lambda: S.sort_tiles(mat)), _time_ms(lambda: S.sort_tiles_ref(mat))),
         "merge_level": (_time_ms(lambda: S.merge_level(mat, perm, run)),
                         _time_ms(lambda: S.merge_level_ref(mat, perm, run))),
     }
+    n_levels = (perm0.shape[0] // S.TILE).bit_length() - 1
+    all_ms = _time_ms(lambda: levels(S.merge_level))
+    all_plain_ms = _time_ms(lambda: levels(S.merge_level_ref))
     sort_ms = _time_ms(lambda: S.sort_operands(main_keys, [iota, prev]))
     plain_ms = _time_ms(lambda: S.sort_operands_ref(main_keys, [iota, prev]))
     print(f"[timing] n=2^22, 4 keys + index, payloads iota+prev: "
           f"sort_tiles {t['sort_tiles'][0]:.3f} ms (plain {t['sort_tiles'][1]:.3f}); "
-          f"merge_level run={run} {t['merge_level'][0]:.3f} ms (plain {t['merge_level'][1]:.3f}); "
-          f"sort_operands {sort_ms:.3f} ms (plain torch.sort passes {plain_ms:.3f})")
+          f"merge_level, last level only (run={run} -> {2 * run}) {t['merge_level'][0]:.3f} ms "
+          f"(plain {t['merge_level'][1]:.3f}); all {n_levels} merge levels of one sort "
+          f"{all_ms:.3f} ms (plain {all_plain_ms:.3f}); whole sort_operands (stack, K1, "
+          f"{n_levels} K2 levels, gathers) {sort_ms:.3f} ms (plain torch.sort passes {plain_ms:.3f})")
     return {name: {"max_abs_err": err[name], "ms": t[name][0], "plain_ms": t[name][1]}
             for name in err}
+
+
+def _bit_window_keys(data: bytes, dev):
+    """The four window keys the a6 bit path's bootstrap sorts for ``data``
+    under ``fix``: the path runs once on the card and its windows are taken
+    at ``suffix_ranks_windows``, then offset as ``_bootstrap_window_round``
+    does (0, 16, 32, 48; off-end 0x7FFFFFFF)."""
+    import numpy as np
+    import torch
+
+    from archon_tpu_torch.core import a6
+
+    seen = []
+    ranks = a6.suffix_ranks_windows
+
+    def capture(win, w, sentinel):
+        seen.append(win)
+        return ranks(win, w, sentinel)
+
+    a6.suffix_ranks_windows = capture
+    try:
+        a6.a6_forward(np.frombuffer(data, np.uint8), "fix", impl="bits", device=dev)
+    finally:
+        a6.suffix_ranks_windows = ranks
+    (win,) = seen
+    m = win.shape[0]
+    winp = torch.cat([win, win.new_full((48,), 0x7FFFFFFF)])
+    return [winp[16 * j : 16 * j + m] for j in range(4)]
 
 
 _WORDS = (
@@ -313,7 +372,119 @@ def phase_main():
     print(f"[main] planted repeat took micro rounds {seen['micro']}, cascade {seen['cascade']}")
     if not (seen["micro"] and seen["cascade"]):
         raise AssertionError(f"planted repeat missed the micro tail or the cascade: {seen}")
-    return launches, data[: 4 * MIB]
+    return launches, data
+
+
+def _counted(label, fn, launch=True):
+    """``fn()`` with the kernel launch counts zeroed before it; fails unless
+    both kernels launched (``launch=True``).  Returns (result, seconds,
+    launch counts)."""
+    import torch
+
+    from archon_tpu_torch.ops import sort as S
+
+    torch.cuda.synchronize()
+    S.sort_tiles.launches = S.merge_level.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"sort_tiles": S.sort_tiles.launches, "merge_level": S.merge_level.launches}
+    if launch and min(launches.values()) <= 0:
+        raise AssertionError(f"{label}: a sort kernel never launched: {launches}")
+    return out, dt, launches
+
+
+def phase_a6(data: bytes) -> None:
+    """a6 encode and decode on the card, each coder, against the input and the
+    a7 reference BWT."""
+    import numpy as np
+    import torch
+
+    import archon_tpu_torch as port
+    from archon_tpu_torch.core import a6
+
+    size = len(data)
+    for config in ("byte", "fix", "var"):
+        blob, enc_dt, launches = _counted(
+            f"a6 {config} encode", lambda: port.a6_encode(data, config, device="cuda"))
+        # var decodes on the native host walk and launches no sort kernel
+        back, dec_dt, dec_launches = _counted(
+            f"a6 {config} decode", lambda: port.a6_decode(blob, config, device="cuda"),
+            launch=config != "var")
+        if back != data:
+            raise AssertionError(f"a6 {config}: decode does not give the input back")
+        via = "native host walk" if config == "var" else "device inverse"
+        print(f"[a6] {config}: {size} bytes -> {len(blob)}; encode {enc_dt:.4f} s = "
+              f"{size / 1e6 / enc_dt:.2f} MB/s (launches {launches}); decode ({via}) "
+              f"{dec_dt:.4f} s = {size / 1e6 / dec_dt:.2f} MB/s (launches {dec_launches}); "
+              f"round trip ok")
+
+    # the device part of one encode: the n-symbol transform alone
+    arr = np.frombuffer(data, np.uint8)
+    t = torch.from_numpy(arr.copy()).cuda()
+    code_map = torch.from_numpy(a6._symbol_rank_map(a6.build_codes(arr, "var"))).cuda()
+    sym_ms = _time_ms(lambda: a6._a6_symbol_transform(t, code_map))
+    print(f"[a6] _a6_symbol_transform on {size} bytes (var table): {sym_ms:.3f} ms "
+          f"(CUDA events, incl. its host syncs)")
+
+    block = data[: 4 * MIB]
+    L, base = bwt_reference(block, "a7")
+    if port.a6_encode(block, "byte", device="cuda") != np.uint32(base).tobytes() + L.tobytes():
+        raise AssertionError("a6 byte blob of 4 MiB differs from the a7 reference BWT")
+    print("[a6] byte blob of 4 MiB == u32 base | L of the a7 reference BWT")
+
+    arr = np.frombuffer(data[:MIB], np.uint8)
+    for config in ("fix", "var"):
+        (bits, sym), dt, _ = _counted(f"a6 {config} bit path", lambda: (
+            a6.a6_forward(arr, config, impl="bits", device="cuda"),
+            a6.a6_forward(arr, config, impl="symbol", device="cuda")))
+        if bits[1] != sym[1] or not np.array_equal(bits[0], sym[0]):
+            raise AssertionError(f"a6 {config}: bit path differs from the symbol path on 1 MiB")
+        print(f"[a6] {config} on 1 MiB: bit path == symbol path ({dt:.4f} s for both)")
+
+    one = b"\x07" * MIB
+    blob = port.a6_encode(one, "var", device="cuda")
+    if port.a6_decode(blob, "var", device="cuda") != one:
+        raise AssertionError("a6 var: single-symbol input does not round-trip")
+    blob = port.a6_encode(block, "byte", order="freq", device="cuda")
+    if blob[:4] != b"AO1\xff" or port.a6_decode(blob, "byte", device="cuda") != block:
+        raise AssertionError("a6 -o freq: 4 MiB does not round-trip")
+    print("[a6] single-symbol var 1 MiB and -o freq 4 MiB round trips ok")
+
+
+def phase_inverse(data: bytes) -> None:
+    """The device inverse BWT through ``formats.decode(..., device="cuda")``."""
+    import numpy as np
+    import torch
+
+    import archon_tpu_torch as port
+    from archon_tpu_torch.core.unbwt import lf_successor, pointer_walk
+
+    for generation in ("a4", "a7"):
+        sentinel = "small" if generation == "a4" else "large"
+        blob = port.encode(data, generation, device="cuda")
+        dev_out, dev_dt, launches = _counted(
+            f"{generation} device inverse", lambda: port.decode(blob, generation, device="cuda"))
+        t0 = time.perf_counter()
+        host_out = port.decode(blob, generation)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        if not dev_out == host_out == data:
+            raise AssertionError(f"{generation}: device inverse differs from the input or host walk")
+        L = torch.from_numpy(np.frombuffer(blob[:-4], np.uint8).copy()).cuda()
+        base = int(np.frombuffer(blob[-4:], np.uint32)[0])
+        P = lf_successor(L, base, sentinel)
+        lf_ms = _time_ms(lambda: lf_successor(L, base, sentinel))
+        walk_ms = _time_ms(lambda: pointer_walk(L, P, base))
+        print(f"[inverse] {generation} {len(data)} bytes: decode(device='cuda') {dev_dt * 1e3:.3f} ms "
+              f"(launches {launches}) == input == host walk; lf_successor {lf_ms:.3f} ms + "
+              f"pointer_walk {walk_ms:.3f} ms (CUDA events); host walk {host_ms:.3f} ms")
+        for n in (5000, 1):
+            small = data[:n]
+            if port.decode(port.encode(small, generation, device="cuda"), generation,
+                           device="cuda") != small:
+                raise AssertionError(f"{generation}: device inverse fails at n={n}")
+    print("[inverse] n = 5000 (doubling branch) and n = 1 round trips ok")
 
 
 def phase_breakdown(block: bytes) -> None:
@@ -369,8 +540,10 @@ def main() -> int:
     phase_card()
     phase_build()
     stats = phase_kernels()
-    launches, block0 = phase_main()
-    phase_breakdown(block0)
+    launches, text = phase_main()
+    phase_a6(text[: 16 * MIB])
+    phase_inverse(text[: 16 * MIB])
+    phase_breakdown(text[: 4 * MIB])
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
          "launches": launches[name], **stats[name]}

@@ -1,4 +1,5 @@
-"""CUDA kernels and the forward BWT on the card (marker ``cuda``).
+"""CUDA kernels, the forward BWT, a6 and the device inverse on the card
+(marker ``cuda``).
 
 A CUDA kernel has no CPU mode, so these skip without a card.  The file
 imports no JAX, so on a GPU machine without JAX it runs alone:
@@ -10,8 +11,11 @@ import numpy as np
 import pytest
 import torch
 
+from archon_tpu.golden import a6 as golden_a6
 from archon_tpu.golden import sa as golden
-from archon_tpu_torch.core import fast2
+from archon_tpu.utils.corpus import text_like
+from archon_tpu_torch import formats
+from archon_tpu_torch.core import a6, fast2, unbwt
 from archon_tpu_torch.ops import sort as tsort
 
 pytestmark = pytest.mark.cuda
@@ -56,3 +60,31 @@ def test_bwt_v3_on_card_matches_golden(cuda_device, sentinel):
         L, base = fast2.bwt_v3(torch.from_numpy(arr.copy()).to(cuda_device), sentinel)
         want_L, want_base = golden.bwt_forward(arr, sentinel)
         assert np.array_equal(L.cpu().numpy(), want_L) and base == want_base
+
+
+@pytest.mark.parametrize("config", ["byte", "fix", "var"])
+def test_a6_on_card_matches_golden(cuda_device, config):
+    rng = np.random.default_rng(6)
+    for data in (b"abracadabra alakazam", text_like(5000, 3),
+                 bytes(rng.integers(0, 50, 20_000, dtype=np.uint8))):
+        blob = a6.a6_encode(data, config, device=cuda_device)
+        assert blob == golden_a6.a6_encode(data, config)
+        assert a6.a6_decode(blob, config, device=cuda_device) == data
+        arr = np.frombuffer(data, np.uint8)
+        if config != "byte":
+            bits = a6.a6_forward(arr, config, impl="bits", device=cuda_device)
+            assert bits[1] == int.from_bytes(blob[:4], "little")
+            assert bits[0].tobytes() == blob[4:]
+
+
+@pytest.mark.parametrize("sentinel", ["small", "large"])
+@pytest.mark.parametrize("n", [1, 5000, 20011])
+def test_device_inverse_on_card_matches_host_walk(cuda_device, sentinel, n):
+    arr = np.frombuffer(text_like(n, 4), np.uint8)
+    L, base = golden.bwt_forward(arr, sentinel)
+    got = unbwt.bwt_inverse(torch.from_numpy(L.copy()).to(cuda_device), int(base), sentinel)
+    assert got.device.type == "cuda"
+    assert np.array_equal(got.cpu().numpy(), golden.bwt_inverse(L, base, sentinel))
+    gen = "a4" if sentinel == "small" else "a7"
+    blob = formats.encode(arr.tobytes(), gen, device=cuda_device)
+    assert formats.decode(blob, gen, device=cuda_device) == formats.decode(blob, gen) == arr.tobytes()

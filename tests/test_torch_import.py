@@ -1,6 +1,7 @@
 """The port imports no JAX (checked in a fresh interpreter: this test
-process already holds jax, tests/conftest.py imports it), and its kernel
-build fails loudly."""
+process already holds jax, tests/conftest.py imports it) through its
+encoders, the a6 round trip and the device inverse, and its kernel build
+fails loudly."""
 
 import subprocess
 import sys
@@ -19,6 +20,14 @@ data = b"the port imports no jax " * 50
 for pack in (False, True):
     assert decode_file(encode_file(data, "a7", 256, pack=pack, device="cpu")) == data
 assert decode(encode(data, "a4", device="cpu"), "a4") == data
+from archon_tpu_torch import a6_encode, a6_decode, ArchonConfig
+assert ArchonConfig().coder == "byte"
+for config in ("byte", "var"):
+    assert a6_decode(a6_encode(data, config, device="cpu"), config, device="cpu") == data
+assert decode(encode(data, "a7", device="cpu"), "a7", device="cpu") == data
+assert sorted(archon_tpu_torch.__all__) == sorted(
+    ["ArchonConfig", "a6_decode", "a6_encode", "decode", "decode_file", "encode", "encode_file"]
+)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 assert not bad, bad
 print("ok")

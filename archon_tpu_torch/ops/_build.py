@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -29,7 +30,7 @@ NVCC_FLAGS = [
 
 _LOCK = threading.Lock()
 _LIB = None
-BUILD_LOG = ""  # nvcc/ptxas output of the build this process ran ("" if cached)
+BUILD_LOG = ""  # nvcc/ptxas output of the build that made the loaded library
 
 
 def _nvcc() -> str:
@@ -65,14 +66,36 @@ def _load() -> None:
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
-        BUILD_LOG = proc.stdout + proc.stderr
+        log = proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{BUILD_LOG}")
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
+    log_file = out.with_suffix(".log")
+    BUILD_LOG = log_file.read_text() if log_file.exists() else ""
     lib = ctypes.CDLL(str(out))
-    i64, ptr = ctypes.c_int64, ctypes.c_void_p
-    lib.archon_sort_tiles.restype = ctypes.c_int
-    lib.archon_sort_tiles.argtypes = [ptr, i64, ctypes.c_int, ptr, i64, ptr]
-    lib.archon_merge_level.restype = ctypes.c_int
-    lib.archon_merge_level.argtypes = [ptr, i64, ctypes.c_int, ptr, ptr, i64, i64, ptr]
+    i32, i64, ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
+    lib.archon_sort_tiles.restype = i32
+    lib.archon_sort_tiles.argtypes = [ptr, i64, i32, i32, ptr, i64, ptr]
+    lib.archon_merge_level.restype = i32
+    lib.archon_merge_level.argtypes = [ptr, i64, i32, i32, ptr, ptr, ptr, i64, i64, ptr]
     _LIB = lib
+
+
+def kernel_resources(log: str) -> list:
+    """(kernel, registers, spill store bytes, spill load bytes) for each entry
+    function in a ``ptxas -v`` log; a template instance is named with its
+    argument, as ``merge_level_kernel<4>``."""
+    rows, entry, props, spills = [], None, None, (0, 0)
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            entry, spills = m.group(1), (0, 0)
+        elif m := re.search(r"Function properties for (\w+)", line):
+            props = m.group(1)
+        elif (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)) and props == entry:
+            spills = (int(m.group(1)), int(m.group(2)))
+        elif (m := re.search(r"Used (\d+) registers", line)) and entry:
+            k = re.search(r"\d+([a-z_]+_kernel)I[a-zA-Z]*(\d+)E", entry)
+            rows.append((f"{k.group(1)}<{k.group(2)}>" if k else entry, int(m.group(1)), *spills))
+            entry = None
+    return rows

@@ -4,31 +4,35 @@ Port of ``archon_tpu/ops/pallas_sort.py``.  Its two Pallas kernels become two
 CUDA kernels in ``archon_tpu_torch/csrc/sort.cu`` (built by ``ops/_build.py``):
 
 - ``sort_tiles`` (K1) replaces ``sort_tiles`` / ``_tile_sort_kernel``
-  (``pallas_sort.py:393`` / ``:385``): a bitonic network per T-element tile,
-  one thread block per tile, the tile in shared memory;
+  (``pallas_sort.py:393`` / ``:385``): one thread block sorts each
+  ``TILE``-tuple tile in shared memory (a register sort per thread, then
+  in-block merges);
 - ``merge_level`` (K2) replaces ``_merge_level`` / ``_merge_kernel``
-  (``pallas_sort.py:317`` / ``:265``): merged runs of L -> 2L, each block
-  computing its own merge-path split (in place of ``_merge_partition`` and
-  scalar prefetch).
+  (``pallas_sort.py:317`` / ``:265``): merged runs of L -> 2L, a split pass
+  (``_merge_partition``, ``:211``) finding every block's merge-path split,
+  then the merge.
 
 ``sort_operands`` drives K1 and then the K2 levels; it is the port's sort at
-every ``lax.sort`` site of ``core/fast2``.  Unlike the TPU kernels, which
-sort the operand values, both kernels sort a permutation of element indices
-and read the int32 keys from one (K, n) matrix in device memory, so the key
-count is a run-time value; payloads of any dtype are gathered by the final
-permutation.
+every ``lax.sort`` site of ``core/``.  Like the TPU kernels, both kernels
+carry the key values through the sort: a tuple buffer of shape
+``(C + 1, n_pad)``, int32, holds the first ``C = min(K, MAX_CARRY)`` keys and
+then the element index.  Keys past the first ``C`` (the micro tail's 13 and
+49) stay in the ``(K, n)`` key matrix and are read by index only where every
+carried key ties.  ``sort_operands`` returns the carried keys as they come
+out and gathers the rest, and the payloads of any dtype, by the index row.
 
-Stability: ``lax.sort`` is stable and the JAX pipeline relies on it, while a
-bitonic network is not.  Both kernels therefore compare on (keys..., index):
-the element index is the implicit last key, unique, which makes the order
-total and equal to a stable sort by the keys -- the same as appending an
-iota key at every sort site.  Padding up to a tile multiple has index >= n
-and sorts after every real element by that index, never by value, so key
-values need no reserved sentinel (0x7FFFFFFF is a real key in core/fast2).
+Order: tuples compare on (keys..., index).  The index is the implicit last
+key, unique, so the order is total and equal to a stable sort by the keys
+(``lax.sort`` is stable and the JAX pipeline relies on it).  Padding up to a
+tile multiple carries index >= n and every carried key ``PAD_KEY``
+(0x7FFFFFFF), so it sorts after every real element, a real all-0x7FFFFFFF
+one included, and among itself by index.  Key values need no reserved
+sentinel: 0x7FFFFFFF and -1 are real keys in core/fast2.
 
-Each kernel has a plain PyTorch twin (``sort_tiles_ref``, ``merge_level_ref``,
-``sort_operands_ref``: stable ``torch.sort`` passes from the last key to the
-first, then a gather).  A wrapper takes its twin only for tensors on the CPU;
+Each kernel has a plain PyTorch twin (``sort_tiles_ref``, ``merge_level_ref``:
+the same tuples in and out, by stable ``torch.sort`` passes within each tile
+or run pair; ``sort_operands_ref``: stable passes from the last key to the
+first, then gathers).  A wrapper takes its twin only for tensors on the CPU;
 on a CUDA tensor it launches its kernel or raises.  ``sort_tiles.launches``
 and ``merge_level.launches`` count kernel launches.
 """
@@ -37,8 +41,16 @@ from __future__ import annotations
 
 import torch
 
-TILE = 2048  # K1's tile, kSortTile in csrc/sort.cu: 1024 threads, 8 KiB smem
+TILE = 8192  # K1's tile, kSortTile in csrc/sort.cu: 1024 threads x 8 elements
+MERGE_TILE = 2048  # K2's outputs per block, kMergeTile in csrc/sort.cu
+MAX_CARRY = 4  # keys carried in the tuples, kMaxCarry in csrc/sort.cu
+PAD_KEY = 0x7FFFFFFF  # every carried key of a padding tuple
 MAX_WIDTH = 1 << 30  # sort widths must stay below this (int32 indices, padding)
+
+
+def carried(num_keys: int) -> int:
+    """Keys a tuple carries for a sort on ``num_keys`` keys."""
+    return min(num_keys, MAX_CARRY)
 
 
 def _key_matrix(keys) -> torch.Tensor:
@@ -52,6 +64,19 @@ def _key_matrix(keys) -> torch.Tensor:
     if keys.shape[1] >= MAX_WIDTH:
         raise ValueError("sort width must be below 2^30")
     return keys
+
+
+def _tuple_buffer(keys: torch.Tensor, tuples) -> torch.Tensor:
+    """Validate a (C + 1, n_pad) tuple buffer for the key matrix ``keys``."""
+    C = carried(keys.shape[0])
+    if (not isinstance(tuples, torch.Tensor) or tuples.dim() != 2 or tuples.shape[0] != C + 1
+            or tuples.dtype != torch.int32 or not tuples.is_contiguous()):
+        raise ValueError(f"tuples must be a contiguous ({C + 1}, n_pad) int32 tensor")
+    if tuples.device != keys.device:
+        raise ValueError("keys and tuples must be on one device")
+    if tuples.shape[1] < keys.shape[1]:
+        raise ValueError("tuples must cover every key column")
+    return tuples
 
 
 def _padded_width(n: int, tile: int) -> int:
@@ -79,28 +104,38 @@ def _stable_reorder(perm: torch.Tensor, cols) -> torch.Tensor:
     return perm
 
 
-def _tile_cols(keys: torch.Tensor, n_pad: int, group: int):
-    """Sort columns for the tile/merge twins: group id, then padding last,
-    then the keys (padding reads zeros it never compares on)."""
+def _sorted_in_groups(keys: torch.Tensor, tuples: torch.Tensor, group: int) -> torch.Tensor:
+    """``tuples`` with each ``group``-run sorted by (keys..., index): padding
+    (index >= n) last, by index; keys past the carried ones by index."""
     K, n = keys.shape
-    ids = torch.arange(n_pad, device=keys.device)
-    padded = torch.cat([keys, keys.new_zeros((K, n_pad - n))], dim=1)
-    return [ids // group, (ids >= n).to(torch.int32), *padded]
+    C = tuples.shape[0] - 1
+    idx = tuples[C].long()
+    pos = torch.arange(tuples.shape[1], device=keys.device)
+    real = idx < n
+    rest = []
+    if K > C and n > 0:
+        rest = torch.where(real, keys[C:, idx.clamp(max=n - 1)], 0).unbind()
+    cols = [pos // group, (~real).to(torch.int32), *tuples[:C], *rest, idx]
+    return tuples[:, _stable_reorder(pos, cols)]
 
 
 def sort_tiles_ref(keys: torch.Tensor, tile: int = TILE) -> torch.Tensor:
-    """Plain twin of K1: each ``tile`` of indices sorted by (keys..., index)."""
+    """Plain twin of K1: the (C + 1, n_pad) tuples with each ``tile`` sorted."""
     keys = _key_matrix(keys)
-    n_pad = _padded_width(keys.shape[1], tile)
-    perm = torch.arange(n_pad, device=keys.device)
-    return _stable_reorder(perm, _tile_cols(keys, n_pad, tile)).to(torch.int32)
+    K, n = keys.shape
+    C = carried(K)
+    n_pad = _padded_width(n, tile)
+    tuples = torch.full((C + 1, n_pad), PAD_KEY, dtype=torch.int32, device=keys.device)
+    tuples[:C, :n] = keys[:C]
+    tuples[C] = torch.arange(n_pad, dtype=torch.int32, device=keys.device)
+    return _sorted_in_groups(keys, tuples, tile)
 
 
-def merge_level_ref(keys: torch.Tensor, perm: torch.Tensor, run: int) -> torch.Tensor:
-    """Plain twin of K2: stable merge of each pair of sorted ``run``-runs."""
+def merge_level_ref(keys: torch.Tensor, tuples: torch.Tensor, run: int) -> torch.Tensor:
+    """Plain twin of K2: each pair of sorted ``run``-runs of ``tuples``
+    merged (here: each 2*run group re-sorted by stable passes)."""
     keys = _key_matrix(keys)
-    cols = _tile_cols(keys, perm.shape[0], 2 * run)
-    return _stable_reorder(perm.long(), cols).to(torch.int32)
+    return _sorted_in_groups(keys, _tuple_buffer(keys, tuples), 2 * run)
 
 
 def sort_operands_ref(keys, payloads=()) -> list:
@@ -114,8 +149,8 @@ def sort_operands_ref(keys, payloads=()) -> list:
 
 
 def sort_tiles(keys: torch.Tensor) -> torch.Tensor:
-    """K1: the index permutation (length n rounded up to ``TILE``) in which
-    every tile of indices is sorted by (keys..., index)."""
+    """K1: the (C + 1, n_pad) tuple buffer of the (K, n) key matrix, n_pad a
+    multiple of ``TILE``, with every tile sorted by (keys..., index)."""
     keys = _key_matrix(keys)
     if keys.device.type == "cpu":
         return sort_tiles_ref(keys)
@@ -124,39 +159,40 @@ def sort_tiles(keys: torch.Tensor) -> torch.Tensor:
 
     lib = load_library()
     K, n = keys.shape
+    C = carried(K)
     n_pad = _padded_width(n, TILE)
-    perm = torch.empty(n_pad, dtype=torch.int32, device=keys.device)
+    out = torch.empty((C + 1, n_pad), dtype=torch.int32, device=keys.device)
     with torch.cuda.device(keys.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.archon_sort_tiles(keys.data_ptr(), n, K, perm.data_ptr(), n_pad, stream)
+        rc = lib.archon_sort_tiles(keys.data_ptr(), n, K, C, out.data_ptr(), n_pad, stream)
     _launch_check(rc, "sort_tiles")
     sort_tiles.launches += 1
-    return perm
+    return out
 
 
-def merge_level(keys: torch.Tensor, perm: torch.Tensor, run: int) -> torch.Tensor:
-    """K2: merge each pair of sorted ``run``-runs of ``perm`` (as left by
-    ``sort_tiles`` or a previous level) into one sorted run of 2*run."""
+def merge_level(keys: torch.Tensor, tuples: torch.Tensor, run: int) -> torch.Tensor:
+    """K2: merge each pair of sorted ``run``-runs of the tuple buffer (as
+    left by ``sort_tiles`` or a previous level) into one sorted run of
+    2*run.  On CUDA, ``2 * run`` and n_pad are multiples of ``MERGE_TILE``
+    (as ``sort_operands`` gives them)."""
     keys = _key_matrix(keys)
-    if perm.dim() != 1 or perm.dtype != torch.int32 or not perm.is_contiguous():
-        raise ValueError("perm must be a contiguous 1-D int32 tensor")
-    if perm.device != keys.device:
-        raise ValueError("keys and perm must be on one device")
-    if perm.shape[0] < keys.shape[1] or run < 1:
-        raise ValueError("perm must cover every key column and run must be >= 1")
+    tuples = _tuple_buffer(keys, tuples)
+    if run < 1:
+        raise ValueError("run must be >= 1")
     if keys.device.type == "cpu":
-        return merge_level_ref(keys, perm, run)
+        return merge_level_ref(keys, tuples, run)
     _require_cuda(keys, "merge_level")
     from ._build import load_library
 
     lib = load_library()
     K, n = keys.shape
-    out = torch.empty_like(perm)
+    out = torch.empty_like(tuples)
+    splits = torch.empty(tuples.shape[1] // MERGE_TILE, dtype=torch.int32, device=keys.device)
     with torch.cuda.device(keys.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.archon_merge_level(
-            keys.data_ptr(), n, K, perm.data_ptr(), out.data_ptr(), perm.shape[0], run, stream
-        )
+        rc = lib.archon_merge_level(keys.data_ptr(), n, K, carried(K), tuples.data_ptr(),
+                                    out.data_ptr(), splits.data_ptr(), tuples.shape[1], run,
+                                    stream)
     _launch_check(rc, "merge_level")
     merge_level.launches += 1
     return out
@@ -170,7 +206,8 @@ def sort_operands(keys, payloads=()) -> list:
     """Stable sort of equal-length 1-D operands, lexicographic on ``keys``
     (int32), with ``payloads`` (any dtype) permuted along.  Returns the
     sorted keys then the sorted payloads, like ``lax.sort(keys + payloads,
-    num_keys=len(keys))``."""
+    num_keys=len(keys))``.  On CUDA the first ``MAX_CARRY`` sorted keys are
+    views of the kernels' tuple buffer."""
     keys, payloads = list(keys), list(payloads)
     if not keys:
         raise ValueError("sort_operands needs at least one key")
@@ -184,10 +221,12 @@ def sort_operands(keys, payloads=()) -> list:
     if dev.type == "cpu":
         return sort_operands_ref(keys, payloads)
     mat = torch.stack(keys)
-    perm = sort_tiles(mat)
+    tuples = sort_tiles(mat)
     run = TILE
-    while run < perm.shape[0]:
-        perm = merge_level(mat, perm, run)
+    while run < tuples.shape[1]:
+        tuples = merge_level(mat, tuples, run)
         run *= 2
-    perm = perm[:n]
-    return [k[perm] for k in keys] + [p[perm] for p in payloads]
+    C = tuples.shape[0] - 1
+    perm = tuples[C, :n]
+    return ([tuples[c, :n] for c in range(C)] + [k[perm] for k in keys[C:]]
+            + [p[perm] for p in payloads])

@@ -9,10 +9,13 @@ Phases, each printing its own lines; any failure exits non-zero:
 2. build the CUDA kernels from ``archon_tpu_torch/csrc`` (nvcc, sm_90a);
 3. each kernel against its plain PyTorch twin on the card, exact equality, at
    the shapes the forward BWT, a6 and the inverse give it (among them 1 key +
-   index at 2^24, and the a6 bit path's 4 window keys + index at the bit
-   width of a 1 MiB ``fix`` input); timed at 2^22 x 6 operands: K1, the last
-   K2 level, all K2 levels of one sort, the whole ``sort_operands``, each
-   beside its plain twin;
+   index at 2^24, 49 keys through K2 levels, the a6 bit path's 4 window keys
+   + index at the bit width of a 1 MiB ``fix`` input, and the real sorts of
+   one 4 MiB text block: the bootstrap's trigram keys and the full round's
+   rank keys); timed (K1, all K2 levels of one sort, the whole
+   ``sort_operands``, each beside its plain twin) at 2^22 x 6 operands with
+   random keys, at the text block's real sorts, and at 1 key + index at
+   2^24;
 4. the main path through ``archon_tpu_torch.encode_file``: 64 MiB of
    synthetic text in 4 MiB blocks (a4), verify on and off, and 16 MiB (a7),
    each decoded back with ``decode_file``, block 0 held against a plain numpy
@@ -81,9 +84,8 @@ def phase_build():
     t0 = time.perf_counter()
     _build.load_library()
     print(f"[build] CUDA kernels ready in {time.perf_counter() - t0:.2f} s")
-    for line in _build.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
-            print(f"[build] {line.strip()}")
+    for name, regs, stores, loads in _build.kernel_resources(_build.BUILD_LOG):
+        print(f"[build] {name}: {regs} registers, spill stores {stores} B, loads {loads} B")
     t0 = time.perf_counter()
     walk = host_walk()
     print(f"[build] host LF walk: {walk}, ready in {time.perf_counter() - t0:.2f} s")
@@ -134,13 +136,13 @@ def phase_kernels():
 
     def check(name, keys, payloads):
         mat = torch.stack(keys)
-        perm = S.sort_tiles(mat)
-        e1 = _max_err(perm, S.sort_tiles_ref(mat))
+        tuples = S.sort_tiles(mat)
+        e1 = _max_err(tuples, S.sort_tiles_ref(mat))
         run, e2 = S.TILE, 0
-        while run < perm.shape[0]:
-            nxt = S.merge_level(mat, perm, run)
-            e2 = max(e2, _max_err(nxt, S.merge_level_ref(mat, perm, run)))
-            perm, run = nxt, run * 2
+        while run < tuples.shape[1]:
+            nxt = S.merge_level(mat, tuples, run)
+            e2 = max(e2, _max_err(nxt, S.merge_level_ref(mat, tuples, run)))
+            tuples, run = nxt, run * 2
         got = S.sort_operands(keys, payloads)
         want = S.sort_operands_ref(keys, payloads)
         e3 = max(_max_err(g, w) for g, w in zip(got, want))
@@ -163,6 +165,7 @@ def phase_kernels():
     for count in (13, 49):
         check(f"micro round ({count} keys + index = {count + 1})", keyset(4096, count, 4),
               keyset(4096, 1, 4096))
+    check("49 keys past 4 carried, through K2 levels", keyset(20_011, 49, 3), [])
     check("ragged n = 2^22 - 17", keyset(n - 17, 2, 1000), keyset(n - 17, 1, 1 << 30))
     check("n = 1", keyset(1, 3, 5), keyset(1, 1, 5))
     edge = keyset(100_003, 2, 3)
@@ -171,42 +174,94 @@ def phase_kernels():
     check("keys of -1 and 0x7FFFFFFF", edge, [])
     check("all-equal keys", [torch.zeros(300_001, dtype=torch.int32, device=dev)] * 2, [])
     big = 1 << 24  # a6 emission and lf_successor at 16 MiB: 1 byte key + index
-    check("1 key 0..255 + index, 2^24", keyset(big, 1, 256), [torch.arange(big, device=dev)])
+    big_keys, big_pay = keyset(big, 1, 256), [torch.arange(big, device=dev)]
+    check("1 key 0..255 + index, 2^24", big_keys, big_pay)
     win_keys = _bit_window_keys(synthetic_text(MIB, seed=7), dev)
     check("a6 bit bootstrap, 4 base-3 16-windows + index, 1 MiB fix", win_keys,
           [torch.arange(win_keys[0].shape[0], device=dev)])
+    text_sorts = _text_block_sorts(synthetic_text(4 * MIB, seed=7), dev)
+    for label, (keys, payloads) in text_sorts.items():
+        check(f"4 MiB text block, {label}", keys, payloads)
 
-    # timing at the full round's shape: 4 keys + index, iota and prev payloads
-    mat = torch.stack(main_keys)
-    perm0 = S.sort_tiles(mat)
+    # timing: the full round's shape at random keys, the two real sorts of
+    # one text block, and 1 key + index at 2^24
+    rows = {"random keys (n/64 distinct), 2^22": (main_keys, [iota, prev]), **{
+        f"text block {label}, 2^22": sorts for label, sorts in text_sorts.items()},
+        "1 key 0..255 + index, 2^24": (big_keys, big_pay)}
+    times = {label: _time_sort(keys, payloads) for label, (keys, payloads) in rows.items()}
+    for label, t in times.items():
+        print(f"[timing] {label}, {t['keys']} keys + index, {t['payloads']} payloads: "
+              f"sort_tiles {t['k1']:.3f} ms (plain {t['k1_plain']:.3f}); all {t['levels']} "
+              f"merge levels {t['k2']:.3f} ms (plain {t['k2_plain']:.3f}); whole sort_operands "
+              f"(stack, K1, {t['levels']} K2 levels, gathers) {t['sort']:.3f} ms "
+              f"(plain torch.sort passes {t['sort_plain']:.3f})")
+    t = times["random keys (n/64 distinct), 2^22"]
+    print(f"[timing] random keys, 2^22: merge_level, last level only (run={t['last_run']} -> "
+          f"{2 * t['last_run']}) {t['last']:.3f} ms (plain {t['last_plain']:.3f})")
+    return {"sort_tiles": {"max_abs_err": err["sort_tiles"], "ms": t["k1"],
+                           "plain_ms": t["k1_plain"]},
+            "merge_level": {"max_abs_err": err["merge_level"], "ms": t["last"],
+                            "plain_ms": t["last_plain"]}}
+
+
+def _time_sort(keys, payloads) -> dict:
+    """K1, all K2 levels, the last K2 level and the whole sort of ``keys``,
+    each beside its plain twin (CUDA events)."""
+    import torch
+
+    from archon_tpu_torch.ops import sort as S
+
+    mat = torch.stack(keys)
+    first = S.sort_tiles(mat)
 
     def levels(merge, last=0):
         """K2 levels over K1's output, up to but not including the last
         ``last`` levels."""
-        perm, run = perm0, S.TILE
-        while run << last < perm.shape[0]:
-            perm, run = merge(mat, perm, run), run * 2
-        return perm, run
+        tuples, run = first, S.TILE
+        while run << last < tuples.shape[1]:
+            tuples, run = merge(mat, tuples, run), run * 2
+        return tuples, run
 
-    perm, run = levels(S.merge_level, last=1)  # the input of the last level
-    t = {
-        "sort_tiles": (_time_ms(lambda: S.sort_tiles(mat)), _time_ms(lambda: S.sort_tiles_ref(mat))),
-        "merge_level": (_time_ms(lambda: S.merge_level(mat, perm, run)),
-                        _time_ms(lambda: S.merge_level_ref(mat, perm, run))),
+    before_last, last_run = levels(S.merge_level, last=1)
+    return {
+        "keys": len(keys), "payloads": len(payloads),
+        "levels": (first.shape[1] // S.TILE).bit_length() - 1, "last_run": last_run,
+        "k1": _time_ms(lambda: S.sort_tiles(mat)), "k1_plain": _time_ms(lambda: S.sort_tiles_ref(mat)),
+        "k2": _time_ms(lambda: levels(S.merge_level)),
+        "k2_plain": _time_ms(lambda: levels(S.merge_level_ref)),
+        "last": _time_ms(lambda: S.merge_level(mat, before_last, last_run)),
+        "last_plain": _time_ms(lambda: S.merge_level_ref(mat, before_last, last_run)),
+        "sort": _time_ms(lambda: S.sort_operands(keys, payloads)),
+        "sort_plain": _time_ms(lambda: S.sort_operands_ref(keys, payloads)),
     }
-    n_levels = (perm0.shape[0] // S.TILE).bit_length() - 1
-    all_ms = _time_ms(lambda: levels(S.merge_level))
-    all_plain_ms = _time_ms(lambda: levels(S.merge_level_ref))
-    sort_ms = _time_ms(lambda: S.sort_operands(main_keys, [iota, prev]))
-    plain_ms = _time_ms(lambda: S.sort_operands_ref(main_keys, [iota, prev]))
-    print(f"[timing] n=2^22, 4 keys + index, payloads iota+prev: "
-          f"sort_tiles {t['sort_tiles'][0]:.3f} ms (plain {t['sort_tiles'][1]:.3f}); "
-          f"merge_level, last level only (run={run} -> {2 * run}) {t['merge_level'][0]:.3f} ms "
-          f"(plain {t['merge_level'][1]:.3f}); all {n_levels} merge levels of one sort "
-          f"{all_ms:.3f} ms (plain {all_plain_ms:.3f}); whole sort_operands (stack, K1, "
-          f"{n_levels} K2 levels, gathers) {sort_ms:.3f} ms (plain torch.sort passes {plain_ms:.3f})")
-    return {name: {"max_abs_err": err[name], "ms": t[name][0], "plain_ms": t[name][1]}
-            for name in err}
+
+
+def _text_block_sorts(block: bytes, dev) -> dict:
+    """The full-width sorts ``bwt_v3`` runs on one text block, as the main
+    path gives them (the block reversed, a4): the bootstrap's four
+    packed-trigram keys and each full round's four rank keys, with the index
+    and the previous byte as payloads.  Captured at ``fast2._sort_ctx``."""
+    import numpy as np
+    import torch
+
+    from archon_tpu_torch.core import fast2
+
+    seen = []
+    sort_ctx = fast2._sort_ctx
+
+    def capture(keys, iota, payloads):
+        seen.append((list(keys), [iota, *payloads]))
+        return sort_ctx(keys, iota, payloads)
+
+    fast2._sort_ctx = capture
+    try:
+        fast2.bwt_v3(torch.from_numpy(np.frombuffer(block[::-1], np.uint8).copy()).to(dev), "small")
+    finally:
+        fast2._sort_ctx = sort_ctx
+    if len(seen) < 2:
+        raise AssertionError(f"bwt_v3 ran {len(seen)} full-width sorts on a text block, not 2+")
+    return {("bootstrap trigram keys" if i == 0 else f"full round {i} rank keys"): s
+            for i, s in enumerate(seen)}
 
 
 def _bit_window_keys(data: bytes, dev):

@@ -28,25 +28,44 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n,nk,hi", [(1, 3, 5), (4096, 49, 3), (100_003, 4, 1000),
-                                     ((1 << 22) - 17, 4, 1 << 16)])
+def _hold_kernels_to_twins(keys, payloads):
+    """K1 and every K2 level against their twins on the tuples (every row),
+    then the whole sort against its twin; both kernels must launch."""
+    mat = torch.stack(keys)
+    before = (tsort.sort_tiles.launches, tsort.merge_level.launches)
+    tuples = tsort.sort_tiles(mat)
+    assert torch.equal(tuples, tsort.sort_tiles_ref(mat))
+    run = tsort.TILE
+    while run < tuples.shape[1]:
+        nxt = tsort.merge_level(mat, tuples, run)
+        assert torch.equal(nxt, tsort.merge_level_ref(mat, tuples, run))
+        tuples, run = nxt, 2 * run
+    got = tsort.sort_operands(keys, payloads)
+    want = tsort.sort_operands_ref(keys, payloads)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert tsort.sort_tiles.launches > before[0]
+    if tuples.shape[1] > tsort.TILE:
+        assert tsort.merge_level.launches > before[1]
+
+
+@pytest.mark.parametrize("n,nk,hi", [(1, 3, 5), (4096, 49, 3), (20_011, 49, 3),
+                                     (100_003, 4, 1000), ((1 << 22) - 17, 4, 1 << 16)])
 def test_kernels_match_twins_on_card(cuda_device, n, nk, hi):
     rng = np.random.default_rng(n)
     keys = [torch.from_numpy(rng.integers(-1, hi, n).astype(np.int32)).to(cuda_device)
             for _ in range(nk)]
-    mat = torch.stack(keys)
-    before = (tsort.sort_tiles.launches, tsort.merge_level.launches)
-    perm = tsort.sort_tiles(mat)
-    assert torch.equal(perm, tsort.sort_tiles_ref(mat))
-    run = tsort.TILE
-    while run < perm.shape[0]:
-        nxt = tsort.merge_level(mat, perm, run)
-        assert torch.equal(nxt, tsort.merge_level_ref(mat, perm, run))
-        perm, run = nxt, 2 * run
-    got = tsort.sort_operands(keys, [keys[0]])
-    want = tsort.sort_operands_ref(keys, [keys[0]])
-    assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert tsort.sort_tiles.launches > before[0]
+    _hold_kernels_to_twins(keys, [keys[0]])
+
+
+def test_kernels_match_twins_on_text_trigram_keys(cuda_device):
+    """The forward BWT's bootstrap sort of a 4 MiB text block: four packed
+    trigram keys + index at 2^22, ties past key 0 on every repeated word."""
+    data = torch.from_numpy(np.frombuffer(text_like(1 << 22, 9), np.uint8).copy()).to(cuda_device)
+    n = data.shape[0]
+    p27 = fast2._trigram_keys(data, "small")
+    keys = [p27[3 * j:3 * j + n].contiguous() for j in range(4)]
+    _hold_kernels_to_twins(keys, [torch.arange(n, dtype=torch.int32, device=cuda_device),
+                                  torch.roll(data, 1)])
 
 
 @pytest.mark.parametrize("sentinel", ["small", "large"])

@@ -71,16 +71,43 @@ def test_sort_operands_ref_matches_jax(name):
     assert np.array_equal(got[len(keys)].numpy(), _lexorder(keys))
 
 
+def _twin_sort(mat, tile):
+    """The kernels' path with their twins at a small tile: K1, then K2
+    levels; returns the final (C + 1, n_pad) tuples."""
+    tuples = tsort.sort_tiles_ref(mat, tile)
+    run = tile
+    while run < tuples.shape[1]:
+        tuples = tsort.merge_level_ref(mat, tuples, run)
+        run *= 2
+    return tuples
+
+
+def _check_tuples(tuples, keys, n):
+    """Final tuples against lax.sort of (keys..., iota): every carried row and
+    the index row; padding last, in index order, keys 0x7FFFFFFF."""
+    C = tuples.shape[0] - 1
+    iota = np.arange(n, dtype=np.int32)
+    want = lax.sort(tuple(jnp.asarray(x) for x in (*keys, iota)), num_keys=len(keys))
+    got = tuples.numpy()
+    for c in range(C):
+        assert np.array_equal(got[c, :n], np.asarray(want[c]))
+    assert np.array_equal(got[C, :n], np.asarray(want[-1]))
+    assert np.array_equal(got[C, n:], np.arange(n, got.shape[1]))
+    assert (got[:C, n:] == tsort.PAD_KEY).all()
+
+
 def test_sort_tiles_ref_matches_pallas_interpret():
     rng = np.random.default_rng(4)
     n = 4 * TILE
     key = rng.integers(0, 1000, n).astype(np.int32)
     iota = np.arange(n, dtype=np.int32)
-    _, want = jsort.sort_tiles((jnp.asarray(key), jnp.asarray(iota)), num_keys=2,
-                               tile=TILE, interpret=True)
+    want = jsort.sort_tiles((jnp.asarray(key), jnp.asarray(iota)), num_keys=2,
+                            tile=TILE, interpret=True)
     mat = _t(key[None])
     got = tsort.sort_tiles_ref(mat, TILE)
-    assert np.array_equal(got.numpy(), np.asarray(want))
+    assert got.shape == (2, n)
+    for g, w in zip(got.numpy(), want):  # the carried key row and the index row
+        assert np.array_equal(g, np.asarray(w))
     # the CPU wrapper is the twin at the kernel's own tile
     assert np.array_equal(tsort.sort_tiles(mat).numpy(), tsort.sort_tiles_ref(mat).numpy())
 
@@ -97,12 +124,65 @@ def test_merge_level_ref_matches_pallas_interpret(n):
     ops = jsort.sort_tiles(ops, num_keys=2, tile=TILE, interpret=True)
     want = jsort._merge_level(ops, 2, TILE, TILE, n_pad, interpret=True)
     mat = _t(key[None])
-    perm = tsort.sort_tiles_ref(mat, TILE)
-    got = tsort.merge_level_ref(mat, perm, TILE)
-    assert np.array_equal(got.numpy()[:n], np.asarray(want[1])[:n])
-    assert np.array_equal(tsort.merge_level(mat, perm, TILE).numpy(), got.numpy())
+    tuples = tsort.sort_tiles_ref(mat, TILE)
+    got = tsort.merge_level_ref(mat, tuples, TILE)
+    # the key row whole (Pallas pads with INF = PAD_KEY), the index row on
+    # the real elements (Pallas pads its iota with INF, the twin with n..)
+    assert np.array_equal(got.numpy()[0], np.asarray(want[0]))
+    assert np.array_equal(got.numpy()[1, :n], np.asarray(want[1])[:n])
+    assert np.array_equal(tsort.merge_level(mat, tuples, TILE).numpy(), got.numpy())
     # padding stays behind every real element, in index order
-    assert np.array_equal(got.numpy()[n:], np.arange(n, n_pad))
+    assert np.array_equal(got.numpy()[1, n:], np.arange(n, n_pad))
+
+
+def test_twins_carry_four_of_six_keys():
+    """K > C: the tuples carry 4 keys, keys 5 and 6 are read by index on
+    ties; the twin path against lax.sort on every row."""
+    rng = np.random.default_rng(6)
+    n = 5 * TILE + 33
+    keys = [rng.integers(0, 2, n).astype(np.int32) for _ in range(6)]
+    mat = _t(np.stack(keys))
+    tuples = _twin_sort(mat, TILE)
+    assert tuples.shape == (tsort.MAX_CARRY + 1, 6 * TILE)
+    _check_tuples(tuples, keys, n)
+    got = tsort.sort_operands([_t(k) for k in keys])
+    want = lax.sort(tuple(jnp.asarray(k) for k in keys), num_keys=6)
+    assert all(np.array_equal(g.numpy(), np.asarray(w)) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("nk", [1, 3, 6])
+def test_twins_real_max_keys_sort_before_padding(nk):
+    """A ragged width whose real elements have every key 0x7FFFFFFF, as
+    padding does: they stay ahead of it, by index."""
+    rng = np.random.default_rng(nk)
+    n = 2 * TILE + 45
+    keys = [rng.choice(np.array([-1, 0x7FFFFFFF], np.int32), n) for _ in range(nk)]
+    for k in keys:
+        k[::3] = 0x7FFFFFFF
+    tuples = _twin_sort(_t(np.stack(keys)), TILE)
+    _check_tuples(tuples, keys, n)
+    C = tuples.shape[0] - 1
+    all_max = np.flatnonzero(np.all(np.stack(keys) == 0x7FFFFFFF, axis=0))
+    assert all_max.size and np.array_equal(tuples.numpy()[C, n - all_max.size:n], all_max)
+
+
+def test_sort_operands_trigram_keys_of_text():
+    """The bootstrap sort of the forward BWT on text: four packed-trigram
+    keys (many ties past key 0) + the index, the sort and the twin path
+    against lax.sort of the same operands."""
+    from archon_tpu.utils.corpus import text_like
+    from archon_tpu_torch.core import fast2
+
+    data = torch.from_numpy(np.frombuffer(text_like(3 * TILE + 5, 11), np.uint8).copy())
+    n = data.shape[0]
+    p27 = fast2._trigram_keys(data, "small")
+    keys = [p27[3 * j:3 * j + n].contiguous() for j in range(4)]
+    iota = torch.arange(n, dtype=torch.int32)
+    prev = torch.roll(data, 1)
+    got = tsort.sort_operands(keys, [iota, prev])
+    want = lax.sort(tuple(jnp.asarray(x.numpy()) for x in (*keys, iota, prev)), num_keys=4)
+    assert all(np.array_equal(g.numpy(), np.asarray(w)) for g, w in zip(got, want))
+    _check_tuples(_twin_sort(torch.stack(keys), TILE), [k.numpy() for k in keys], n)
 
 
 def test_sort_operands_sentinel_keys_match_lax_sort():
@@ -133,13 +213,10 @@ def test_sort_operands_fifty_keys():
     assert np.array_equal(got[-1].numpy(), pos[order])
     for g, k in zip(got[:-1], keys):
         assert np.array_equal(g.numpy(), k[order])
-    mat = _t(np.stack(keys))
-    perm = tsort.sort_tiles_ref(mat, 1024)
-    run = 1024
-    while run < n:
-        perm = tsort.merge_level_ref(mat, perm, run)
-        run *= 2
-    assert np.array_equal(perm.numpy(), order)
+    tuples = _twin_sort(_t(np.stack(keys)), 1024)
+    assert np.array_equal(tuples[-1].numpy(), order)
+    for g, k in zip(tuples[:-1], keys):
+        assert np.array_equal(g.numpy(), k[order])
 
 
 def test_sort_operands_rejects_bad_operands():

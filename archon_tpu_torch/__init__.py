@@ -5,15 +5,15 @@ the device inverse BWT (``core.unbwt``) run on torch tensors; their sorts go
 through hand-written CUDA kernels (``csrc/sort.cu``: a per-tile bitonic
 sort and merge-path merge levels, ports of ``archon_tpu/ops/pallas_sort.py``)
 on CUDA tensors, and through their plain PyTorch twins on CPU tensors.
-Output is byte-identical with the JAX package.  The package imports no JAX:
-it reuses only ``archon_tpu``'s host-side modules (``native``, ``entropy``,
-``golden``, ``config.ArchonConfig`` and the container framing constants),
-which import none either, all through ``host``.
+Output is byte-identical with the JAX package.  The package imports no JAX
+and nothing of ``archon_tpu``: the host-side modules it needs (``native``
+with its C++ source, ``entropy``, ``golden``, ``config.ArchonConfig`` and the
+container framing) are its own copies, under the JAX package's names.
 
 There are no weights and no learned state to carry between the packages:
 both take the same input bytes and the same configuration (generation
-a4/a7, block size, pack), and the port uses ``archon_tpu.config.ArchonConfig``
-as it is, so no converter exists or is needed.
+a4/a7, block size, pack, impl), and ``config.ArchonConfig`` has the JAX
+package's fields, so no converter exists or is needed.
 
 Top-level API (lazily imported).  Every function that runs on a device
 takes ``device``, default ``"cuda"``, and raises when that device is
@@ -22,9 +22,10 @@ unavailable; ``decode`` walks on the host unless given a device, and
 
     encode(data, generation, device=...)      / decode(blob, generation, device=None)
     a6_encode(data, config, order, device=...) / a6_decode(blob, config, order, device=...)
-    encode_file(data, generation, block_size, verify, pack, device=...)
+    encode_file(data, generation, block_size, verify, impl, dp, pack, device=...)
+    encode_to_path(data, path, ..., resume, flush_blocks, verify, impl, pack, device=...)
     decode_file(blob, strict, on_error)
-    ArchonConfig                              # the JAX package's config object
+    ArchonConfig                              # the configuration dataclass
 """
 
 from __future__ import annotations
@@ -33,10 +34,11 @@ _LAZY = {
     "encode": ("archon_tpu_torch.formats", "encode"),
     "decode": ("archon_tpu_torch.formats", "decode"),
     "encode_file": ("archon_tpu_torch.io.blocks", "encode_file"),
+    "encode_to_path": ("archon_tpu_torch.io.blocks", "encode_to_path"),
     "decode_file": ("archon_tpu_torch.io.blocks", "decode_file"),
     "a6_encode": ("archon_tpu_torch.core.a6", "a6_encode"),
     "a6_decode": ("archon_tpu_torch.core.a6", "a6_decode"),
-    "ArchonConfig": ("archon_tpu_torch.host", "ArchonConfig"),
+    "ArchonConfig": ("archon_tpu_torch.config", "ArchonConfig"),
 }
 
 __all__ = sorted(_LAZY)

@@ -7,6 +7,7 @@
                                 [-o none|freq|greedy|topo|bubble] [-u] [--device D]
                                         # a6-compatible format
   python -m archon_tpu_torch e|d <in> <out> [-g a4|a7] [-b BLOCK] [--pack]
+                                [--impl micro|v3|stream] [--resume]
                                 [--no-verify] [--device D]
                                         # block-streamed ATA1/ATA2 container
 """
@@ -14,10 +15,11 @@
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
-from .host import ArchonConfig
+from .config import ArchonConfig
 
 
 def _rw_timed(args, fn):
@@ -65,7 +67,15 @@ def _parser():
         gb.add_argument("-b", "--block-size", type=lambda s: int(s, 0), default=None)
         if mode == "e":
             gb.add_argument("--no-verify", action="store_true",
-                            help="skip the per-block host round-trip check")
+                            help="skip the per-block check (the device LF certificate for "
+                            "micro and v3, the host round trip for stream)")
+            gb.add_argument("--impl", default="micro", choices=["micro", "v3", "stream"],
+                            help="device program: cascade-free batched fast path with a "
+                            "per-row fallback (micro), batched with the cascade inside (v3), "
+                            "or block by block (stream); all write the same bytes")
+            gb.add_argument("--resume", action="store_true",
+                            help="continue an interrupted encode: keep complete blocks "
+                            "already in OUTFILE, truncate any partial frame, encode the rest")
             gb.add_argument("--pack", action="store_true",
                             help="entropy-pack each block (ATA2 container)")
             gb.add_argument("--device", default="cuda", help="torch device to encode on")
@@ -80,6 +90,8 @@ def _config_from_args(args) -> ArchonConfig:
     cfg.verify = not getattr(args, "no_verify", False)
     cfg.block_size = getattr(args, "block_size", None) or cfg.block_size
     cfg.pack = getattr(args, "pack", False)
+    cfg.impl = getattr(args, "impl", cfg.impl)
+    cfg.resume = getattr(args, "resume", False)
     cfg.coder = getattr(args, "coder", cfg.coder)
     cfg.order = getattr(args, "order", cfg.order)
     cfg.radix = getattr(args, "radix", cfg.radix)
@@ -106,10 +118,24 @@ def main(argv=None) -> int:
     elif args.cmd == "e":
         from .io import blocks
 
-        _rw_timed(args, lambda d: blocks.encode_file(
-            d, cfg.generation, cfg.block_size, verify=cfg.verify, pack=cfg.pack,
-            device=args.device,
-        ))
+        if cfg.resume:
+            # complete frames already in OUTFILE are kept, a trailing partial
+            # frame is truncated, and only the missing blocks are recomputed
+            with open(args.infile, "rb") as f:
+                d = f.read()
+            t0 = time.perf_counter()
+            n_done = blocks.encode_to_path(
+                d, args.outfile, cfg.generation, cfg.block_size, resume=True,
+                verify=cfg.verify, impl=cfg.impl, pack=cfg.pack, device=args.device,
+            )
+            dt = time.perf_counter() - t0
+            print(f"{len(d)} -> {os.path.getsize(args.outfile)} bytes "
+                  f"({n_done} block(s) recomputed, {dt:.3f} s)")
+        else:
+            _rw_timed(args, lambda d: blocks.encode_file(
+                d, cfg.generation, cfg.block_size, verify=cfg.verify, impl=cfg.impl,
+                pack=cfg.pack, device=args.device,
+            ))
     else:
         from .io import blocks
 

@@ -33,13 +33,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..host import (
-    build_encoder_byte,
-    build_encoder_fixed,
-    build_encoder_var,
-    native,
-    order_table,
-)
+from .. import native
+from ..entropy.huffman import build_encoder_byte, build_encoder_fixed, build_encoder_var
+from ..entropy.order import order_table
 from ..io.blocks import as_device
 from ..ops.bitpack import pack_codes_sized, words_to_bits
 from ..ops.sort import MAX_WIDTH, sort_operands
@@ -255,8 +251,8 @@ def _a6_decode_raw(blob: bytes, config: str = "byte", device="cuda") -> bytes:
     for c in np.argsort(keys, kind="stable"):
         starts[c] = acc
         acc += int(counts[c])
-    # decided on this thread: the JAX package's unbwt_starts falls back to
-    # its JAX inverse when the library is missing
+    # without the library the walk runs on ``device`` rather than through
+    # native.unbwt_starts' own fallback on the CPU
     if native.available():
         return native.unbwt_starts(L, base, starts).tobytes()
     out = bwt_inverse_with_starts(torch.from_numpy(L.copy()).to(dev), base, torch.from_numpy(starts))

@@ -1,5 +1,5 @@
 """Sentinel conventions and rank inversion (port of the parts of
-``archon_tpu/core/doubling.py`` the forward BWT uses)."""
+``archon_tpu/core/doubling.py`` the forward BWT and its certificates use)."""
 
 from __future__ import annotations
 
@@ -16,3 +16,9 @@ def _invert_permutation(perm: torch.Tensor, values: torch.Tensor) -> torch.Tenso
     out = torch.empty_like(values)
     out[perm] = values
     return out
+
+
+def rank_of(sa: torch.Tensor) -> torch.Tensor:
+    """Inverse permutation of a suffix array (int32)."""
+    n = sa.shape[0]
+    return _invert_permutation(sa, torch.arange(n, dtype=torch.int32, device=sa.device))

@@ -41,36 +41,59 @@ def _sort_ctx(keys, iota, payloads):
 
 
 def _heads(sorted_keys) -> torch.Tensor:
-    """Group-head flags: True where any key differs from its predecessor."""
-    diff = sorted_keys[0][1:] != sorted_keys[0][:-1]
+    """Group-head flags along the last axis: True where any key differs from
+    its predecessor."""
+    diff = sorted_keys[0][..., 1:] != sorted_keys[0][..., :-1]
     for k in sorted_keys[1:]:
-        diff = diff | (k[1:] != k[:-1])
-    one = torch.ones(1, dtype=torch.bool, device=diff.device)
-    return torch.cat([one, diff])
+        diff = diff | (k[..., 1:] != k[..., :-1])
+    return torch.cat([diff.new_ones((*diff.shape[:-1], 1)), diff], dim=-1)
+
+
+def _tie_members(head: torch.Tensor) -> torch.Tensor:
+    """Members of tie groups (groups of more than one), from the head flags."""
+    nxt = torch.cat([head[..., 1:], head.new_ones((*head.shape[:-1], 1))], dim=-1)
+    return ~(head & nxt)
+
+
+def _group_ranks(sorted_keys, iota):
+    """The per-round epilogue without its count, along the last axis:
+    positional group ranks (cummax of head positions) and the active flags."""
+    head = _heads(sorted_keys)
+    return blocked_cummax(torch.where(head, iota, 0)), _tie_members(head)
 
 
 def _epilogue(sorted_keys, iota):
-    """Per-round epilogue: positional group ranks (cummax of head
-    positions), active flags (members of tie groups), active count."""
-    head = _heads(sorted_keys)
-    ranks_sorted = blocked_cummax(torch.where(head, iota, 0))
-    nxt = torch.cat([head[1:], head.new_ones(1)])
-    active_s = ~(head & nxt)
+    """Per-round epilogue: positional group ranks, active flags (members of
+    tie groups), active count."""
+    ranks_sorted, active_s = _group_ranks(sorted_keys, iota)
     return ranks_sorted, active_s, int(active_s.sum())
 
 
+def _refine_in_groups(ks, pos_s, iota_c):
+    """A narrowed round's rank update along the last axis: ``ks`` sorted,
+    key 0 the rank before the round.  An element's new rank is its old one
+    plus its new group's offset inside the old group.  Returns (new ranks,
+    still-active flags, pad flags); ``pos_s < 0`` marks padding."""
+    h0 = _heads(ks[:1])
+    hF = _heads(ks)
+    t0 = blocked_cummax(torch.where(h0, iota_c, 0))
+    tF = blocked_cummax(torch.where(hF, iota_c, 0))
+    pad = pos_s < 0
+    return ks[0] + (tF - t0), _tie_members(hF) & ~pad, pad
+
+
 def _trigram_keys(data: torch.Tensor, sentinel: str) -> torch.Tensor:
-    """Packed-trigram key per position (length n+9): an order-consistent
-    context-3 key in the 9-bit extended-symbol space (byte b -> b+1,
-    off-end pad 0 or 511)."""
-    n = data.shape[0]
+    """Packed-trigram key per position along the last axis (length n+9): an
+    order-consistent context-3 key in the 9-bit extended-symbol space (byte
+    b -> b+1, off-end pad 0 or 511)."""
+    n = data.shape[-1]
     ext = data.to(_I32) + 1
     pad_val = 0 if sentinel == SENT_SMALL else _EXT_BASE - 1
-    extp = torch.cat([ext, torch.full((11,), pad_val, dtype=_I32, device=data.device)])
+    extp = torch.cat([ext, ext.new_full((*ext.shape[:-1], 11), pad_val)], dim=-1)
     return (
-        extp[: n + 9] * (_EXT_BASE * _EXT_BASE)
-        + extp[1 : n + 10] * _EXT_BASE
-        + extp[2 : n + 11]
+        extp[..., : n + 9] * (_EXT_BASE * _EXT_BASE)
+        + extp[..., 1 : n + 10] * _EXT_BASE
+        + extp[..., 2 : n + 11]
     )
 
 
@@ -93,14 +116,14 @@ def _inverted_round(keys):
 
 def _quad_keys(rank: torch.Tensor, k: int, sentinel: str):
     """The quadrupling round's keys (rank[p], rank[p+k], rank[p+2k],
-    rank[p+3k]), off_end past the end."""
-    n = rank.shape[0]
+    rank[p+3k]) along the last axis, off_end past the end."""
+    n = rank.shape[-1]
     off_end = -1 if sentinel == SENT_SMALL else n + 1
-    padded = torch.cat([rank, torch.full((n,), off_end, dtype=_I32, device=rank.device)])
+    padded = torch.cat([rank, torch.full_like(rank, off_end)], dim=-1)
 
     def shifted(j):
         s = min(j * k, n)
-        return padded[s : s + n]
+        return padded[..., s : s + n]
 
     return [rank, shifted(1), shifted(2), shifted(3)]
 
@@ -238,15 +261,8 @@ def _round_active_c(rank, apos, ar0, k: int, sentinel: str):
     r0_s, r1_s, r2_s, r3_s, pos_s = sort_operands(
         (r0, shifted(1), shifted(2), shifted(3)), (pos_key,)
     )
-    h0 = _heads([r0_s])
-    h4 = _heads([r0_s, r1_s, r2_s, r3_s])
-    t0 = blocked_cummax(torch.where(h0, iota_c, 0))
-    t4 = blocked_cummax(torch.where(h4, iota_c, 0))
-    pad = pos_s < 0
-    nxt_h4 = torch.cat([h4[1:], h4.new_ones(1)])
-    still = ~(h4 & nxt_h4) & ~pad
-
-    new_rank_s = torch.where(pad, 0, r0_s + (t4 - t0))
+    new_rank_s, still, pad = _refine_in_groups([r0_s, r1_s, r2_s, r3_s], pos_s, iota_c)
+    new_rank_s = torch.where(pad, 0, new_rank_s)
     rank[pos_s[~pad]] = new_rank_s[~pad]
 
     # compact still-active (pos, r0) to the front for the next round
@@ -339,15 +355,8 @@ def _micro_round(G, g: int, pos, r, j_lo: int, j_hi: int, sentinel: str):
         p = safe + j * g
         keys.append(torch.where(valid & (p < n), G[p.clamp(max=n - 1)], off_end))
     *ks, pos_s = sort_operands(keys, (torch.where(valid, pos, -1),))
-    h0 = _heads(ks[:1])
-    hF = _heads(ks)
-    t0 = blocked_cummax(torch.where(h0, iota_c, 0))
-    tF = blocked_cummax(torch.where(hF, iota_c, 0))
-    pad = pos_s < 0
-    r_new = torch.where(pad, _BIG, ks[0] + (tF - t0))
-    nxt = torch.cat([hF[1:], hF.new_ones(1)])
-    still = ~(hF & nxt) & ~pad
-    return pos_s, r_new, int(still.sum())
+    r_new, still, pad = _refine_in_groups(ks, pos_s, iota_c)
+    return pos_s, torch.where(pad, _BIG, r_new), int(still.sum())
 
 
 def bwt_v3(data: torch.Tensor, sentinel: str = SENT_SMALL):

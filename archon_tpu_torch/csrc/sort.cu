@@ -1,7 +1,8 @@
 // Hopper sort kernels: per-tile sort (K1) and merge-path merge levels (K2).
-// Together, driven by archon_tpu_torch/ops/sort.py sort_operands, they are a
-// stable lexicographic multi-key sort: the drop-in for every lax.sort site of
-// the forward BWT, a6 and the device inverse.
+// Together, driven by archon_tpu_torch/ops/sort.py sort_operands (and, for a
+// batch of rows laid end to end, sort_rows), they are a stable lexicographic
+// multi-key sort: the drop-in for every lax.sort site of the forward BWT, its
+// batched form, a6 and the device inverse.
 //
 // Replaces archon_tpu/ops/pallas_sort.py:
 //   K1 sort_tiles_kernel       <- sort_tiles (:393) / _tile_sort_kernel (:385)

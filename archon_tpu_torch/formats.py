@@ -3,7 +3,7 @@
 
 Both formats are N bytes of BWT payload followed by a u32-LE base index; the
 payload is the BWT of the reversed input, a4 with the terminator-smallest
-suffix order, a7 terminator-largest (see ``archon_tpu/golden/sa.py``).
+suffix order, a7 terminator-largest (see ``golden/sa.py``).
 """
 
 from __future__ import annotations
@@ -11,8 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import native
 from .core.doubling import SENT_LARGE, SENT_SMALL
-from .host import native
 from .io.blocks import _inverse, as_device
 
 _CONVENTION = {"a4": SENT_SMALL, "a7": SENT_LARGE}

@@ -15,16 +15,17 @@ CHUNK = 1024  # row width of the blocked scan
 
 
 def blocked_cummax(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive cummax along the last axis of a 1-D integer tensor,
-    two-level blocked; exact for any input (max is associative and
-    idempotent)."""
+    """Inclusive cummax along the last axis of a 1-D or 2-D integer tensor
+    (each row of a 2-D one on its own), two-level blocked; exact for any
+    input (max is associative and idempotent)."""
     n = x.shape[-1]
     if n <= 2 * CHUNK:
         return torch.cummax(x, dim=-1).values
+    lead = x.shape[:-1]
     rows = -(-n // CHUNK)
     low = torch.iinfo(x.dtype).min
-    xp = torch.cat([x, x.new_full((rows * CHUNK - n,), low)]).view(rows, CHUNK)
-    inner = torch.cummax(xp, dim=1).values
-    carry = torch.cummax(inner[:, -1], dim=0).values
-    prev = torch.cat([carry.new_full((1,), low), carry[:-1]])
-    return torch.maximum(inner, prev[:, None]).view(-1)[:n]
+    xp = torch.cat([x, x.new_full((*lead, rows * CHUNK - n), low)], dim=-1).view(*lead, rows, CHUNK)
+    inner = torch.cummax(xp, dim=-1).values
+    carry = torch.cummax(inner[..., -1], dim=-1).values
+    prev = torch.cat([carry.new_full((*lead, 1), low), carry[..., :-1]], dim=-1)
+    return torch.maximum(inner, prev[..., None]).view(*lead, rows * CHUNK)[..., :n]

@@ -13,13 +13,16 @@ CUDA kernels in ``archon_tpu_torch/csrc/sort.cu`` (built by ``ops/_build.py``):
   then the merge.
 
 ``sort_operands`` drives K1 and then the K2 levels; it is the port's sort at
-every ``lax.sort`` site of ``core/``.  Like the TPU kernels, both kernels
-carry the key values through the sort: a tuple buffer of shape
-``(C + 1, n_pad)``, int32, holds the first ``C = min(K, MAX_CARRY)`` keys and
-then the element index.  Keys past the first ``C`` (the micro tail's 13 and
-49) stay in the ``(K, n)`` key matrix and are read by index only where every
-carried key ties.  ``sort_operands`` returns the carried keys as they come
-out and gathers the rest, and the payloads of any dtype, by the index row.
+every 1-D ``lax.sort`` site of ``core/``.  ``sort_rows`` is its form for a
+``(B, n)`` batch sorted along the last axis (``lax.sort(dimension=1)``, the
+sites of ``core/batched.py``): the same two kernels, one launch per level for
+all rows.  Like the TPU kernels, both kernels carry the key values through
+the sort: a tuple buffer of shape ``(C + 1, n_pad)``, int32, holds the first
+``C = min(K, MAX_CARRY)`` keys and then the element index.  Keys past the
+first ``C`` (the micro tail's 13 and 49) stay in the ``(K, n)`` key matrix and
+are read by index only where every carried key ties.  ``sort_operands``
+returns the carried keys as they come out and gathers the rest, and the
+payloads of any dtype, by the index row.
 
 Order: tuples compare on (keys..., index).  The index is the implicit last
 key, unique, so the order is total and equal to a stable sort by the keys
@@ -31,10 +34,10 @@ sentinel: 0x7FFFFFFF and -1 are real keys in core/fast2.
 
 Each kernel has a plain PyTorch twin (``sort_tiles_ref``, ``merge_level_ref``:
 the same tuples in and out, by stable ``torch.sort`` passes within each tile
-or run pair; ``sort_operands_ref``: stable passes from the last key to the
-first, then gathers).  A wrapper takes its twin only for tensors on the CPU;
-on a CUDA tensor it launches its kernel or raises.  ``sort_tiles.launches``
-and ``merge_level.launches`` count kernel launches.
+or run pair; ``sort_operands_ref`` and ``sort_rows_ref``: stable passes from
+the last key to the first, then gathers).  A wrapper takes its twin only for
+tensors on the CPU; on a CUDA tensor it launches its kernel or raises.
+``sort_tiles.launches`` and ``merge_level.launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -220,13 +223,93 @@ def sort_operands(keys, payloads=()) -> list:
             raise TypeError(f"keys must be int32, got {k.dtype}")
     if dev.type == "cpu":
         return sort_operands_ref(keys, payloads)
-    mat = torch.stack(keys)
-    tuples = sort_tiles(mat)
-    run = TILE
-    while run < tuples.shape[1]:
-        tuples = merge_level(mat, tuples, run)
-        run *= 2
+    tuples = _sort_runs(torch.stack(keys), n)
     C = tuples.shape[0] - 1
     perm = tuples[C, :n]
     return ([tuples[c, :n] for c in range(C)] + [k[perm] for k in keys[C:]]
             + [p[perm] for p in payloads])
+
+
+def _sort_runs(mat: torch.Tensor, width: int) -> torch.Tensor:
+    """K1 over the (K, m) key matrix on a CUDA device, then K2 levels until
+    the sorted runs reach ``width``: the tuple buffer with every aligned
+    ``width``-run sorted (the whole of it when ``width >= m``)."""
+    tuples = sort_tiles(mat)
+    run = TILE
+    while run < min(width, tuples.shape[1]):
+        tuples = merge_level(mat, tuples, run)
+        run *= 2
+    return tuples
+
+
+def row_width(B: int, n: int) -> int:
+    """Columns each row takes in ``sort_rows``' tuple buffer: ``TILE * 2^m``
+    when rows share a buffer, so that K2's aligned run pairs stop at the row
+    and no merge crosses into the next; a lone row pads to a tile multiple."""
+    if B == 1:
+        return _padded_width(n, TILE)
+    w = TILE
+    while w < n:
+        w *= 2
+    return w
+
+
+def sort_rows_ref(keys, payloads=()) -> list:
+    """Plain twin of ``sort_rows``: stable ``torch.sort`` passes along
+    ``dim=1``, last key first, then gathers."""
+    B, n = keys[0].shape
+    perm = torch.arange(n, device=keys[0].device).expand(B, n)
+    for c in reversed(keys):
+        perm = perm.gather(1, torch.sort(c.gather(1, perm), dim=1, stable=True).indices)
+    return [t.gather(1, perm) for t in (*keys, *payloads)]
+
+
+def sort_rows(keys, payloads=()) -> list:
+    """Stable sort of equal-shape (B, n) operands along the last axis, each
+    row on its own, lexicographic on ``keys`` (int32), with ``payloads`` (any
+    dtype) permuted along: ``lax.sort(keys + payloads, dimension=1,
+    num_keys=len(keys))``.
+
+    On CUDA the rows are laid end to end in one key matrix, each padded to
+    ``row_width`` columns with ``PAD_KEY`` in every key, and sorted by one K1
+    launch and one K2 launch per level for the whole batch; the levels stop
+    at the row width.  Padding of a row follows its real elements in index
+    order and ties with nothing below it, so it sorts to the row's end."""
+    keys, payloads = list(keys), list(payloads)
+    if not keys:
+        raise ValueError("sort_rows needs at least one key")
+    shape, dev = keys[0].shape, keys[0].device
+    for t in keys + payloads:
+        if t.dim() != 2 or t.shape != shape or t.device != dev:
+            raise ValueError("operands must be 2-D, of one shape, on one device")
+    for k in keys:
+        if k.dtype != torch.int32:
+            raise TypeError(f"keys must be int32, got {k.dtype}")
+    if dev.type == "cpu":
+        return sort_rows_ref(keys, payloads)
+    if shape[0] == 0 or shape[1] == 0:
+        return keys + payloads
+    return _sort_rows_kernels(keys, payloads)
+
+
+def _sort_rows_kernels(keys: list, payloads: list) -> list:
+    """``sort_rows`` through K1 and K2 (on CPU tensors, through their twins:
+    the tests hold the row layout that way)."""
+    (B, n), dev = keys[0].shape, keys[0].device
+    W = row_width(B, n)
+    if B * W >= MAX_WIDTH:
+        raise ValueError("sort_rows: the batch's padded width must be below 2^30")
+    if W == n:
+        mat = torch.stack(keys).view(len(keys), B * n)
+    else:
+        mat = torch.full((len(keys), B, W), PAD_KEY, dtype=torch.int32, device=dev)
+        for j, k in enumerate(keys):
+            mat[j, :, :n] = k
+        mat = mat.view(len(keys), B * W)
+    tuples = _sort_runs(mat, W).view(-1, B, W)
+    C = tuples.shape[0] - 1
+    # buffer index of (row b, column j) is b * W + j: the operands' is b * n + j
+    rows = torch.arange(B, dtype=torch.int32, device=dev)[:, None]
+    perm = tuples[C, :, :n] - rows * (W - n)
+    return ([tuples[c, :, :n] for c in range(C)] + [k.reshape(-1)[perm] for k in keys[C:]]
+            + [p.reshape(-1)[perm] for p in payloads])

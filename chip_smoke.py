@@ -34,10 +34,23 @@ Phases, each printing its own lines; any failure exits non-zero:
    events), the host LF walk of one block (``decode_file``), and
    ``torch.profiler``'s self device time per op over one ``bwt_v3``, with the
    device busy share of that call;
-8. one JSON line describing the kernels, then the device line last.
+8. ``sort_rows`` (the batched sort, rows end to end through the same two
+   kernels) against its plain twin at the batched path's shapes, timed at
+   (8, 2^22);
+9. the batched container path: the same 64 MiB through ``impl="micro"``
+   (verify on and off) and 16 MiB through ``impl="v3"``, each byte-identical
+   with the stream's container, MB/s beside the stream's and by rows per
+   unit; one unit of 8 rows apart (ms, rounds, host syncs, launches, peak memory, the certificate's
+   ms); a corrupted L failing the certificate; a file with a row that the
+   micro program cannot resolve, through ``_fallback_row``;
+10. resume: ``encode_to_path`` cut in the middle of a frame and resumed, then
+    resumed after one input byte changed; ``extract_block`` of both
+    containers;
+11. one JSON line describing the kernels, then the device line last.
 
 Phases 5 and 6 zero the kernel launch counts before each encode or device
-decode and fail unless both kernels launched in it.
+decode and fail unless both kernels launched in it; so do the stream's and
+the batched path's 64 MiB runs, whose counts the JSON line reports.
 
 The script uses the port's own API only; its test data and its BWT
 reference are made here, from fixed seeds.
@@ -46,6 +59,7 @@ reference are made here, from fixed seeds.
 from __future__ import annotations
 
 import json
+import os
 import struct
 import subprocess
 import sys
@@ -198,10 +212,20 @@ def phase_kernels():
     t = times["random keys (n/64 distinct), 2^22"]
     print(f"[timing] random keys, 2^22: merge_level, last level only (run={t['last_run']} -> "
           f"{2 * t['last_run']}) {t['last']:.3f} ms (plain {t['last_plain']:.3f})")
+    # bounds at the timed shape (2^22 x 4 keys + index; a K2 level moves 168 MB).
+    # library_ms: no single PyTorch call sorts tiles or merges runs on four
+    # keys; the chain of stable torch.sort passes for the whole sort is given
+    # beside the whole hand sort instead
+    bounds = kernel_bounds(n, 4, S.carried(4), S.TILE, n)
+    whole = {"whole_sort_ms": t["sort"], "whole_sort_torch_ms": t["sort_plain"]}
+    for name, b in bounds.items():
+        print(f"[timing] {name} at 2^22 x 4 keys: bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
     return {"sort_tiles": {"max_abs_err": err["sort_tiles"], "ms": t["k1"],
-                           "plain_ms": t["k1_plain"]},
+                           "plain_ms": t["k1_plain"], **bounds["sort_tiles"],
+                           "library_ms": None, **whole},
             "merge_level": {"max_abs_err": err["merge_level"], "ms": t["last"],
-                            "plain_ms": t["last_plain"]}}
+                            "plain_ms": t["last_plain"], **bounds["merge_level"],
+                            "library_ms": None, **whole}}
 
 
 def _time_sort(keys, payloads) -> dict:
@@ -355,7 +379,10 @@ def _frame0(blob):
     return L, base
 
 
-def _encode_checked(label, data, generation, block_size, verify=True):
+def _encode_checked(label, data, generation, block_size, verify=True, impl="stream", same_as=None):
+    """One timed ``encode_file``; the container must decode back, its block 0
+    equal the reference BWT and, where given, the whole equal ``same_as``.
+    Returns (seconds, container)."""
     import numpy as np
     import torch
 
@@ -363,24 +390,26 @@ def _encode_checked(label, data, generation, block_size, verify=True):
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    blob = port.encode_file(data, generation, block_size, verify=verify, device="cuda")
+    blob = port.encode_file(data, generation, block_size, verify=verify, impl=impl, device="cuda")
     dt = time.perf_counter() - t0
+    if same_as is not None and blob != same_as:
+        raise AssertionError(f"{label}: container differs from the stream's")
     if port.decode_file(blob) != data:
         raise AssertionError(f"{label}: decode_file does not give the input back")
     L, base = _frame0(blob)
     want_L, want_base = bwt_reference(data[:block_size], generation)
     if not (np.array_equal(L, want_L) and base == want_base):
         raise AssertionError(f"{label}: block 0 differs from the reference BWT")
-    print(f"[main] {label}: {len(data)} bytes in {dt:.4f} s = {len(data) / 1e6 / dt:.2f} MB/s "
-          f"(encode_file, verify {'on' if verify else 'off'}); round trip ok; "
-          f"block 0 == reference BWT")
-    return dt
+    print(f"[{'main' if impl == 'stream' else 'batched'}] {label}: {len(data)} bytes in {dt:.4f} s "
+          f"= {len(data) / 1e6 / dt:.2f} MB/s (encode_file, impl {impl}, verify "
+          f"{'on' if verify else 'off'}); round trip ok; block 0 == reference BWT"
+          + ("; == stream container" if same_as is not None else ""))
+    return dt, blob
 
 
 def phase_main():
-    """The port's main path; returns the kernel launch counts of the 64 MiB run."""
-    import numpy as np
-
+    """The port's stream path; returns the kernel launch counts of the 64 MiB
+    run, the text, and the stream's containers and seconds by run."""
     from archon_tpu_torch.core import fast2
     from archon_tpu_torch.ops import sort as S
 
@@ -389,25 +418,22 @@ def phase_main():
     # untimed warm-up: the first call loads torch's CUDA modules for the ops
     _encode_checked("warm-up, a4 4 MiB (not a measurement)", data[: 4 * MIB], "a4", 4 * MIB)
     S.sort_tiles.launches = S.merge_level.launches = 0
-    _encode_checked("a4 64 MiB / 4 MiB blocks", data, "a4", 4 * MIB)
+    stream = {}
+    stream["a4 on"] = _encode_checked("a4 64 MiB / 4 MiB blocks", data, "a4", 4 * MIB)
     launches = {"sort_tiles": S.sort_tiles.launches, "merge_level": S.merge_level.launches}
     print(f"[main] kernel launches in the a4 64 MiB run: {launches}")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
 
-    _encode_checked("a4 64 MiB / 4 MiB blocks", data, "a4", 4 * MIB, verify=False)
+    stream["a4 off"] = _encode_checked("a4 64 MiB / 4 MiB blocks", data, "a4", 4 * MIB, verify=False)
     before = S.sort_tiles.launches + S.merge_level.launches
-    _encode_checked("a7 16 MiB / 4 MiB blocks", data[: 16 * MIB], "a7", 4 * MIB)
+    stream["a7 on"] = _encode_checked("a7 16 MiB / 4 MiB blocks", data[: 16 * MIB], "a7", 4 * MIB)
     if S.sort_tiles.launches + S.merge_level.launches <= before:
         raise AssertionError("the a7 run launched no kernel")
 
     # planted repeat (the shape of tests/test_fast2.py's micro-tail cases):
     # ~3800 actives tied past the micro tail's reach -> micro, then cascade
-    rng = np.random.default_rng(13)
-    block = rng.integers(0, 2, MIB, dtype=np.uint8)
-    rep = rng.integers(0, 2, 1900, dtype=np.uint8)
-    block[1000:2900] = rep
-    block[MIB // 2 : MIB // 2 + 1900] = rep
+    block = planted_repeat_block()
     seen = {"micro": 0, "cascade": 0}
     orig_micro, orig_cascade = fast2._micro_round, fast2._narrow_cascade
 
@@ -421,13 +447,27 @@ def phase_main():
 
     fast2._micro_round, fast2._narrow_cascade = micro, cascade
     try:
-        _encode_checked("a4 1 MiB planted repeat", block.tobytes(), "a4", MIB)
+        _encode_checked("a4 1 MiB planted repeat", block, "a4", MIB)
     finally:
         fast2._micro_round, fast2._narrow_cascade = orig_micro, orig_cascade
     print(f"[main] planted repeat took micro rounds {seen['micro']}, cascade {seen['cascade']}")
     if not (seen["micro"] and seen["cascade"]):
         raise AssertionError(f"planted repeat missed the micro tail or the cascade: {seen}")
-    return launches, data
+    return launches, data, stream
+
+
+def planted_repeat_block() -> bytes:
+    """1 MiB of random bits with a 1900-byte repeat planted twice (the shape
+    of tests/test_fast2.py's micro-tail cases): about 3800 actives tied past
+    the micro tail's reach."""
+    import numpy as np
+
+    rng = np.random.default_rng(13)
+    block = rng.integers(0, 2, MIB, dtype=np.uint8)
+    rep = rng.integers(0, 2, 1900, dtype=np.uint8)
+    block[1000:2900] = rep
+    block[MIB // 2 : MIB // 2 + 1900] = rep
+    return block.tobytes()
 
 
 def _counted(label, fn, launch=True):
@@ -552,7 +592,7 @@ def phase_breakdown(block: bytes) -> None:
 
     arr = torch.from_numpy(np.frombuffer(block[::-1], np.uint8).copy()).cuda()
     bwt_ms = _time_ms(lambda: bwt_v3(arr, "small"))
-    blob = port.encode_file(block, "a4", len(block), verify=False, device="cuda")
+    blob = port.encode_file(block, "a4", len(block), verify=False, impl="stream", device="cuda")
     t0 = time.perf_counter()
     for _ in range(3):
         port.decode_file(blob)
@@ -584,6 +624,247 @@ def phase_breakdown(block: bytes) -> None:
         print(f"[breakdown]   {us / 1e3:8.3f} ms  x{count:<4d} {key[:90]}")
 
 
+HBM_BYTES_PER_S = 3.35e12  # NVIDIA H100 SXM data sheet: 80 GB of HBM at 3.35 TB/s
+INT32_OPS_PER_S = 33.5e12  # half the 67 TFLOP/s float32 rate: one comparison an instruction
+
+
+def kernel_bounds(n: int, num_keys: int, carried: int, tile: int, n_pad: int) -> dict:
+    """The least time the card could take for K1 and for one K2 level on a
+    sort of ``n`` elements: bytes each must move once (K1 reads the carried
+    key rows and writes the tuples; a K2 level reads and writes the tuples)
+    over the memory rate, against the comparisons a sort of tiles (log2 of
+    the tile per element) or a merge (one per element) needs, each over the
+    carried keys, over the int32 rate."""
+    import math
+
+    def bound(nbytes, ops):
+        by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+        return {"bound_ms": max(by_bytes, by_ops),
+                "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+    tuple_bytes = (carried + 1) * 4 * n_pad
+    return {"sort_tiles": bound(carried * 4 * n + tuple_bytes, n * math.log2(tile) * carried),
+            "merge_level": bound(2 * tuple_bytes, n_pad * carried)}
+
+
+def phase_sort_rows() -> None:
+    """``sort_rows`` against ``sort_rows_ref`` on the card, exact, at the
+    batched path's shapes; launches per call; timed at (8, 2^22)."""
+    import numpy as np
+    import torch
+
+    from archon_tpu_torch.ops import sort as S
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(4)
+
+    def operands(B, n, count, hi):
+        return [torch.from_numpy(rng.integers(-1, hi, (B, n)).astype(np.int32)).to(dev)
+                for _ in range(count)]
+
+    def check(name, keys, payloads):
+        S.sort_tiles.launches = S.merge_level.launches = 0
+        got = S.sort_rows(keys, payloads)
+        k1, k2 = S.sort_tiles.launches, S.merge_level.launches
+        want = S.sort_rows_ref(keys, payloads)
+        e = max(_max_err(g, w) for g, w in zip(got, want))
+        torch.cuda.synchronize()
+        B, n = keys[0].shape
+        print(f"[sort_rows] {name}: ({B}, {n}) keys={len(keys)} payloads={len(payloads)} "
+              f"row width {S.row_width(B, n)}; launches K1 {k1}, K2 {k2}; max_abs_err {e} "
+              f"{'ok' if e == 0 else 'MISMATCH'}")
+        if e or k1 != 1 or k2 != (S.row_width(B, n) // S.TILE - 1).bit_length():
+            raise AssertionError(f"sort_rows disagrees with its plain twin or its launches: {name}")
+
+    B, n = 8, 1 << 22
+    iota = torch.arange(n, dtype=torch.int32, device=dev).expand(B, n)
+    prev = torch.from_numpy(rng.integers(0, 256, (B, n), dtype=np.uint8)).to(dev)
+    round_keys = operands(B, n, 4, n // 64)
+    check("full round (4 keys; index, prev u8)", round_keys, [iota, prev])
+    for count in (13, 49):
+        check(f"micro tail ({count} keys; positions)", operands(B, 4096, count, 4),
+              operands(B, 4096, 1, 4096))
+    rank2 = torch.stack([torch.randperm(n, device=dev) for _ in range(B)]).to(torch.int32)
+    cert = [operands(B, n, 1, 256)[0], operands(B, n, 1, n)[0], prev]
+    check("certificate (1 key; 3 payloads)", [rank2], cert)
+    ragged = operands(3, 20_011, 2, 3)
+    ragged[0][:, ::5] = 0x7FFFFFFF  # real keys equal to the padding key
+    check("ragged rows", ragged, [ragged[1] > 0, operands(3, 20_011, 1, 9)[0].to(torch.uint8)])
+    check("one row, ragged", operands(1, 100_003, 2, 50), [])
+
+    for label, keys, payloads in (("full round", round_keys, [iota, prev]),
+                                  ("certificate", [rank2], cert)):
+        ms = _time_ms(lambda: S.sort_rows(keys, payloads))
+        plain = _time_ms(lambda: S.sort_rows_ref(keys, payloads))
+        print(f"[sort_rows] ({B}, {n}) {label}: sort_rows {ms:.3f} ms "
+              f"(plain torch.sort passes along dim 1: {plain:.3f} ms)")
+    ms = _time_ms(lambda: [S.sort_operands([k[b] for k in round_keys], [iota[b], prev[b]])
+                           for b in range(B)])
+    print(f"[sort_rows] ({B}, {n}) full round, row by row through sort_operands: {ms:.3f} ms")
+    for count in (13, 49):
+        keys, pos = operands(B, 4096, count, 4), operands(B, 4096, 1, 4096)
+        ms = _time_ms(lambda: S.sort_rows(keys, pos))
+        loop = _time_ms(lambda: [S.sort_operands([k[b] for k in keys], [pos[0][b]])
+                                 for b in range(B)])
+        print(f"[sort_rows] ({B}, 4096) x {count} keys: sort_rows {ms:.3f} ms, row by row {loop:.3f} ms")
+
+
+def phase_batched(text: bytes, stream: dict) -> dict:
+    """The batched container path against the stream's containers; returns
+    the kernel launch counts of the 64 MiB micro run with verify on."""
+    import numpy as np
+    import torch
+
+    import archon_tpu_torch as port
+    from archon_tpu_torch.core import batched
+    from archon_tpu_torch.io import blocks
+    from archon_tpu_torch.ops import sort as S
+
+    block = 4 * MIB
+    _encode_checked("warm-up, a4 8 MiB micro (not a measurement)", text[: 2 * block], "a4", block,
+                    impl="micro")
+    S.sort_tiles.launches = S.merge_level.launches = 0
+    batched.stats.reset()
+    dt_on, _ = _encode_checked("a4 64 MiB / 4 MiB blocks", text, "a4", block, impl="micro",
+                               same_as=stream["a4 on"][1])
+    launches = {"sort_tiles": S.sort_tiles.launches, "merge_level": S.merge_level.launches}
+    print(f"[batched] a4 64 MiB micro run: kernel launches {launches}, rounds "
+          f"{batched.stats.rounds}, host syncs {batched.stats.host_syncs} (2 units of 8 rows)")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the batched path never launched: {launches}")
+    dt_off, _ = _encode_checked("a4 64 MiB / 4 MiB blocks", text, "a4", block, verify=False,
+                                impl="micro", same_as=stream["a4 off"][1])
+    dt_v3, _ = _encode_checked("a7 16 MiB / 4 MiB blocks", text[: 16 * MIB], "a7", block,
+                               impl="v3", same_as=stream["a7 on"][1])
+    mb = len(text) / 1e6
+    print(f"[batched] a4 64 MiB MB/s, micro against stream in this run: verify on "
+          f"{mb / dt_on:.2f} / {mb / stream['a4 on'][0]:.2f}, verify off {mb / dt_off:.2f} / "
+          f"{mb / stream['a4 off'][0]:.2f}; a7 16 MiB v3 {mb / 4 / dt_v3:.2f} / stream "
+          f"{mb / 4 / stream['a7 on'][0]:.2f}")
+
+    # the unit's size: rows per dispatch unit, through ARCHON_PIPE_BLOCKS
+    rates = []
+    for pipe in (1, 2, 4, 8, 16):
+        os.environ["ARCHON_PIPE_BLOCKS"] = str(pipe)
+        try:
+            got, dt, _ = _counted(f"micro, units of {pipe}", lambda: port.encode_file(
+                text, "a4", block, verify=False, impl="micro", device="cuda"))
+        finally:
+            del os.environ["ARCHON_PIPE_BLOCKS"]
+        if got != stream["a4 off"][1]:
+            raise AssertionError(f"micro with units of {pipe} rows differs from the stream's")
+        rates.append(f"{pipe}: {mb / dt:.2f}")
+    print(f"[batched] a4 64 MiB micro, verify off, MB/s by rows per unit (ARCHON_PIPE_BLOCKS): "
+          f"{', '.join(rates)}; every container == stream's")
+
+    # one unit of 8 rows apart: first the host's share of it, step by step
+    # as io.blocks._batched_forward does them
+    def host_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    unit = [text[i * block : (i + 1) * block] for i in range(8)]
+    rows, stack_ms = host_ms(lambda: np.stack([np.frombuffer(b, np.uint8) for b in unit]))
+    data2, h2d_ms = host_ms(lambda: torch.from_numpy(rows).cuda().flip(1))
+    (L2, base2, _), _ = host_ms(lambda: batched.bwt_batched_micro(data2, "small"))
+    L_host, d2h_ms = host_ms(lambda: L2.cpu().numpy())
+    base_host = base2.cpu().numpy()
+    results = [(L_host[t], int(base_host[t])) for t in range(8)]
+    _, frame_ms = host_ms(lambda: b"".join(
+        piece for frame in blocks._frames(unit, results, pack=False) for piece in frame))
+    print(f"[batched] host steps of one unit (8, {block}), host clock: stack {stack_ms:.3f} ms, "
+          f"copy to the card and reverse there {h2d_ms:.3f} ms, copy back {d2h_ms:.3f} ms, "
+          f"frames joined {frame_ms:.3f} ms")
+    for label, fn in (("micro", batched.bwt_batched_micro),
+                      ("micro_certified", batched.bwt_batched_micro_certified),
+                      ("v3", batched.bwt_batched_v3),
+                      ("v3_certified", batched.bwt_batched_v3_certified)):
+        ms = _time_ms(lambda: fn(data2, "small"))
+        torch.cuda.reset_peak_memory_stats()
+        batched.stats.reset()
+        _, _, unit_launches = _counted(f"unit {label}", lambda: fn(data2, "small"))
+        print(f"[batched] one unit (8, {block}) {label}: {ms:.3f} ms = {ms / 8:.3f} ms a block "
+              f"(CUDA events, incl. its host syncs); rounds {batched.stats.rounds}, host syncs "
+              f"{batched.stats.host_syncs}, launches {unit_launches}, peak device memory "
+              f"{torch.cuda.max_memory_allocated() / MIB:.0f} MiB")
+    L, base, rank = batched._bwt_batched_v3_impl(data2, "small", want_rank=True)
+    cert_ms = _time_ms(lambda: batched.verify_bwt_batched(data2, rank, L, base, "small"))
+    ok = batched.verify_bwt_batched(data2, rank, L, base, "small")
+    bad_L = L.clone()
+    bad_L[3, 12345] ^= 0xFF
+    bad = batched.verify_bwt_batched(data2, rank, bad_L, base, "small")
+    print(f"[batched] verify_bwt_batched on the unit: {cert_ms:.3f} ms (CUDA events); ok "
+          f"{ok.tolist()}; with one byte of row 3's L flipped {bad.tolist()}")
+    if not bool(ok.all()) or bad.tolist() != [i != 3 for i in range(8)]:
+        raise AssertionError("the certificate passed a corrupted L or failed a right one")
+
+    # a row the micro program cannot resolve, beside three it can
+    mixed = planted_repeat_block() + text[: 3 * MIB]
+    want = port.encode_file(mixed, "a4", MIB, impl="stream", device="cuda")
+    for verify in (True, False):
+        blocks._fallback_row.calls = 0
+        got, dt, _ = _counted("fallback file", lambda: port.encode_file(
+            mixed, "a4", MIB, verify=verify, impl="micro", device="cuda"))
+        print(f"[batched] planted repeat + 3 text blocks of 1 MiB, micro, verify "
+              f"{'on' if verify else 'off'}: {blocks._fallback_row.calls} row(s) through "
+              f"_fallback_row, {dt:.4f} s; == stream container: {got == want}")
+        if got != want or blocks._fallback_row.calls < 1:
+            raise AssertionError("the fallback file differs from the stream's or no row fell back")
+    return launches
+
+
+def phase_resume(text: bytes, stream: dict) -> None:
+    """``encode_to_path`` cut and resumed, input drift, ``extract_block``."""
+    import archon_tpu_torch as port
+    from archon_tpu_torch.io import blocks
+    from archon_tpu_torch.ops._build import BUILD_DIR
+
+    block = 4 * MIB
+    want = stream["a4 on"][1]
+    path = BUILD_DIR / "chip_smoke_resume.ata"
+    frame = 4 + block + 4
+    try:
+        t0 = time.perf_counter()
+        n_all = port.encode_to_path(text, path, "a4", block, device="cuda")
+        dt_all = time.perf_counter() - t0
+        if n_all != 16 or path.read_bytes() != want:
+            raise AssertionError("encode_to_path differs from encode_file")
+        with open(path, "r+b") as f:
+            f.truncate(12 + 8 * frame + frame // 2)  # 8 whole frames and half of the ninth
+        t0 = time.perf_counter()
+        n_cut = port.encode_to_path(text, path, "a4", block, resume=True, device="cuda")
+        dt_cut = time.perf_counter() - t0
+        if n_cut != 8 or path.read_bytes() != want:
+            raise AssertionError(f"resume after a cut recomputed {n_cut} blocks or wrote other bytes")
+        if port.encode_to_path(text, path, "a4", block, resume=True, device="cuda") != 0:
+            raise AssertionError("resume over a complete container recomputed blocks")
+        with open(path, "r+b") as f:
+            f.truncate(12 + 8 * frame)
+        at = 7 * block + 4321  # inside the last kept block
+        drifted = text[:at] + bytes([text[at] ^ 1]) + text[at + 1 :]
+        t0 = time.perf_counter()
+        n_drift = port.encode_to_path(drifted, path, "a4", block, resume=True, device="cuda")
+        dt_drift = time.perf_counter() - t0
+        if n_drift != 16 or port.decode_file(path.read_bytes()) != drifted:
+            raise AssertionError(f"resume after input drift recomputed {n_drift} blocks, not all")
+    finally:
+        if path.exists():
+            os.unlink(path)
+    print(f"[resume] encode_to_path a4 64 MiB: {n_all} blocks in {dt_all:.4f} s == encode_file; "
+          f"cut in frame 8 and resumed: {n_cut} blocks in {dt_cut:.4f} s, same bytes; one input "
+          f"byte changed in the last kept block: {n_drift} blocks in {dt_drift:.4f} s")
+    packed = port.encode_file(text[: 16 * MIB], "a4", block, pack=True, impl="micro", device="cuda")
+    one = blocks.extract_block(want, 3)
+    single = port.encode(text[3 * block : 4 * block], "a4", device="cuda")
+    if not one == blocks.extract_block(packed, 3) == single:
+        raise AssertionError("extract_block of ATA1, of ATA2 and the a4 frame of block 3 differ")
+    print(f"[resume] extract_block(3) of ATA1 == of ATA2 == the a4 blob of block 3 "
+          f"({len(one)} bytes); ATA2 of 16 MiB: {len(packed)} bytes")
+
+
 def main() -> int:
     if not (ROOT / "archon_tpu_torch").is_dir():
         print("chip_smoke: run from a checkout of the repository (package not found)",
@@ -595,13 +876,18 @@ def main() -> int:
     phase_card()
     phase_build()
     stats = phase_kernels()
-    launches, text = phase_main()
+    launches, text, stream = phase_main()
     phase_a6(text[: 16 * MIB])
     phase_inverse(text[: 16 * MIB])
     phase_breakdown(text[: 4 * MIB])
+    phase_sort_rows()
+    batched_launches = phase_batched(text, stream)
+    phase_resume(text, stream)
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-         "launches": launches[name], **stats[name]}
+         "launches": launches[name] + batched_launches[name],
+         "launches_stream": launches[name], "launches_batched": batched_launches[name],
+         **stats[name]}
         for name in ("sort_tiles", "merge_level")
     ]
     print(json.dumps({"kernels": kernels}))

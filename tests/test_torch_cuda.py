@@ -107,3 +107,68 @@ def test_device_inverse_on_card_matches_host_walk(cuda_device, sentinel, n):
     gen = "a4" if sentinel == "small" else "a7"
     blob = formats.encode(arr.tobytes(), gen, device=cuda_device)
     assert formats.decode(blob, gen, device=cuda_device) == formats.decode(blob, gen) == arr.tobytes()
+
+
+@pytest.mark.parametrize("B,n,nk,hi", [(1, 1000, 2, 5), (3, 20_011, 2, 7), (8, 4096, 13, 2),
+                                       (8, 4096, 49, 2), (4, 100_003, 4, 1000), (2, 8192, 1, 2)])
+def test_sort_rows_on_card_matches_twin(cuda_device, B, n, nk, hi):
+    """The batched sort through K1 and K2 (rows end to end, levels stopping
+    at the row) against stable ``torch.sort`` passes, with uint8, bool and
+    index payloads; one K1 launch and one K2 launch per level for all rows."""
+    rng = np.random.default_rng(B * n + nk)
+    keys = [torch.from_numpy(rng.integers(-1, hi, (B, n)).astype(np.int32)).to(cuda_device)
+            for _ in range(nk)]
+    keys[0][:, ::11] = 0x7FFFFFFF  # a real key equal to the padding key
+    payloads = [torch.from_numpy(rng.integers(0, 256, (B, n), dtype=np.uint8)).to(cuda_device),
+                keys[-1] > 0,
+                torch.arange(n, dtype=torch.int32, device=cuda_device).expand(B, n)]
+    before = (tsort.sort_tiles.launches, tsort.merge_level.launches)
+    got = tsort.sort_rows(keys, payloads)
+    levels = (tsort.row_width(B, n) // tsort.TILE - 1).bit_length()
+    assert tsort.sort_tiles.launches == before[0] + 1
+    assert tsort.merge_level.launches == before[1] + levels
+    want = tsort.sort_rows_ref(keys, payloads)
+    assert all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("generation", ["a4", "a7"])
+def test_batched_containers_on_card_match_stream(cuda_device, generation):
+    """micro (with a row through the fallback) and v3 write the stream's
+    bytes on the card, certificate on and off, packed and not."""
+    from archon_tpu_torch.io import blocks
+
+    n = 1 << 17
+    rng = np.random.default_rng(11)
+    deep = rng.integers(0, 256, n, dtype=np.uint8)
+    deep[500:3500] = deep[n // 2 : n // 2 + 3000]  # more than 4096 actives at the loop's exit
+    data = text_like(2 * n, 3) + deep.tobytes() + text_like(n + 777, 4)
+    want = blocks.encode_file(data, generation, n, impl="stream", device=cuda_device)
+    assert blocks.decode_file(want) == data
+    calls = blocks._fallback_row.calls
+    for verify in (True, False):
+        for impl in ("micro", "v3"):
+            got = blocks.encode_file(data, generation, n, verify=verify, impl=impl,
+                                     device=cuda_device)
+            assert got == want, (impl, verify)
+    assert blocks._fallback_row.calls == calls + 2
+    packed = blocks.encode_file(data, generation, n, pack=True, device=cuda_device)
+    assert blocks.decode_file(packed) == data
+    assert blocks.extract_block(packed, 2) == blocks.extract_block(want, 2)
+
+
+def test_certificate_on_card_rejects_corruption(cuda_device):
+    from archon_tpu_torch.core import batched
+
+    rows = np.stack([np.frombuffer(text_like(20_011, s), np.uint8) for s in range(4)])
+    data2 = torch.from_numpy(rows).to(cuda_device)
+    L, base, ok = batched.bwt_batched_v3_certified(data2, "large")
+    assert ok.all()
+    for b in range(4):
+        want_L, want_base = golden.bwt_forward(rows[b], "large")
+        assert np.array_equal(L[b].cpu().numpy(), want_L) and int(base[b]) == int(want_base)
+    _, _, rank = batched._bwt_batched_v3_impl(data2, "large", want_rank=True)
+    bad = L.clone()
+    bad[2, 99] ^= 1
+    assert batched.verify_bwt_batched(data2, rank, bad, base, "large").tolist() == [
+        True, True, False, True]
+    assert batched.verify_bwt_batched(data2, rank, L, base + 1, "large").tolist() == [False] * 4

@@ -1,7 +1,7 @@
-"""The port imports no JAX (checked in a fresh interpreter: this test
-process already holds jax, tests/conftest.py imports it) through its
-encoders, the a6 round trip and the device inverse, and its kernel build
-fails loudly."""
+"""The port imports no JAX and nothing of the JAX package (checked in a
+fresh interpreter: this test process already holds both, tests/conftest.py
+imports jax) through its encoders with every ``impl``, a resume, the a6 round
+trip and the device inverse, and its kernel build fails loudly."""
 
 import subprocess
 import sys
@@ -12,13 +12,22 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 
 _PROBE = """
-import sys
+import os, sys, tempfile
 import archon_tpu_torch
-from archon_tpu_torch import cli, encode, decode, encode_file, decode_file
+from archon_tpu_torch import cli, encode, decode, encode_file, decode_file, encode_to_path
 from archon_tpu_torch.ops import sort, _build
 data = b"the port imports no jax " * 50
 for pack in (False, True):
-    assert decode_file(encode_file(data, "a7", 256, pack=pack, device="cpu")) == data
+    for impl in ("micro", "v3", "stream"):
+        blob = encode_file(data, "a7", 256, impl=impl, pack=pack, device="cpu")
+        assert decode_file(blob) == data
+    with tempfile.TemporaryDirectory() as td:
+        out = os.path.join(td, "o.at")
+        with open(out, "wb") as f:
+            f.write(blob[: len(blob) // 2])
+        assert 0 < encode_to_path(data, out, "a7", 256, resume=True, pack=pack, device="cpu") < 5
+        with open(out, "rb") as f:
+            assert f.read() == blob
 assert decode(encode(data, "a4", device="cpu"), "a4") == data
 from archon_tpu_torch import a6_encode, a6_decode, ArchonConfig
 assert ArchonConfig().coder == "byte"
@@ -26,9 +35,10 @@ for config in ("byte", "var"):
     assert a6_decode(a6_encode(data, config, device="cpu"), config, device="cpu") == data
 assert decode(encode(data, "a7", device="cpu"), "a7", device="cpu") == data
 assert sorted(archon_tpu_torch.__all__) == sorted(
-    ["ArchonConfig", "a6_decode", "a6_encode", "decode", "decode_file", "encode", "encode_file"]
+    ["ArchonConfig", "a6_decode", "a6_encode", "decode", "decode_file", "encode", "encode_file",
+     "encode_to_path"]
 )
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "archon_tpu"))
 assert not bad, bad
 print("ok")
 """
@@ -61,9 +71,19 @@ def test_failed_kernel_build_raises(monkeypatch, tmp_path, nvcc):
 
 
 def test_port_sources_do_not_import_jax():
-    for path in (ROOT / "archon_tpu_torch").rglob("*.py"):
+    """Nor anything of the JAX package: no import whose first name is
+    ``jax`` or ``archon_tpu``, in the port or in ``chip_smoke.py``."""
+    sources = [*(ROOT / "archon_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]
+    assert len(sources) > 20 and not (ROOT / "archon_tpu_torch" / "host.py").exists()
+    for path in sources:
         for line in path.read_text().splitlines():
-            words = line.split()
-            assert not (words[:1] in (["import"], ["from"]) and words[1].split(".")[0] == "jax"), (
+            words = line.replace(",", " ").split()
+            if words[:1] == ["from"]:
+                names = words[1:2]
+            elif words[:1] == ["import"]:
+                names = [w for w in words[1:] if w != "as"]
+            else:
+                continue
+            assert not {n.split(".")[0] for n in names} & {"jax", "jaxlib", "archon_tpu"}, (
                 f"{path}: {line}"
             )

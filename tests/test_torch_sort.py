@@ -234,3 +234,66 @@ def test_sort_operands_rejects_bad_operands():
     with pytest.raises(ValueError):
         tsort.merge_level(torch.zeros((1, 8), dtype=torch.int32),
                           torch.zeros(8, dtype=torch.int64), 4)
+
+
+ROW_SHAPES = {  # name -> (B, n, number of keys, key range)
+    "one_row": (1, 1000, 2, 5),
+    "ragged_three_rows": (3, 20_011, 2, 7),
+    "thirteen_keys": (4, 333, 13, 2),
+    "one_key_many_ties": (5, 4096, 1, 2),
+    "tile_multiple": (2, 8192, 4, 3),
+}
+
+
+def _row_operands(name):
+    B, n, nk, hi = ROW_SHAPES[name]
+    rng = np.random.default_rng(len(name) + n)
+    keys = [rng.integers(-1, hi, (B, n)).astype(np.int32) for _ in range(nk)]
+    keys[0][:, ::11] = 0x7FFFFFFF  # a real key equal to the padding key
+    payloads = [rng.integers(0, 256, (B, n)).astype(np.uint8), rng.integers(0, 2, (B, n)) > 0,
+                np.broadcast_to(np.arange(n, dtype=np.int32), (B, n)).copy()]
+    return keys, payloads
+
+
+@pytest.mark.parametrize("name", sorted(ROW_SHAPES))
+def test_sort_rows_matches_lax_sort_dimension_1(name):
+    """``sort_rows`` (on the CPU its plain twin) against the batched JAX
+    sort, with uint8, bool and index payloads; stable, so every output
+    matches exactly."""
+    keys, payloads = _row_operands(name)
+    want = lax.sort(tuple(map(jnp.asarray, keys + payloads)), num_keys=len(keys), dimension=1)
+    got = tsort.sort_rows(list(map(_t, keys)), list(map(_t, payloads)))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == _t(np.asarray(w)).dtype
+        assert np.array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("name", sorted(ROW_SHAPES))
+def test_sort_rows_kernel_layout_matches_twin(name):
+    """The layout the CUDA path gives the kernels (rows end to end, each
+    padded to ``row_width`` with the padding key, merge levels stopping at
+    the row), driven on the CPU through K1's and K2's twins, equals the
+    plain ``sort_rows_ref``: no run crosses a row and padding stays last."""
+    keys, payloads = _row_operands(name)
+    keys, payloads = list(map(_t, keys)), list(map(_t, payloads))
+    got = tsort._sort_rows_kernels(keys, payloads)
+    want = tsort.sort_rows_ref(keys, payloads)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    B, n = keys[0].shape
+    W = tsort.row_width(B, n)
+    assert W % tsort.TILE == 0 and W >= n
+    assert B == 1 or (W // tsort.TILE) & (W // tsort.TILE - 1) == 0
+
+
+def test_sort_rows_rejects_bad_operands():
+    k = torch.zeros((2, 8), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        tsort.sort_rows([])
+    with pytest.raises(ValueError):
+        tsort.sort_rows([k], [torch.zeros((2, 9), dtype=torch.int32)])
+    with pytest.raises(ValueError):
+        tsort.sort_rows([k[0]])
+    with pytest.raises(TypeError):
+        tsort.sort_rows([k.long()])

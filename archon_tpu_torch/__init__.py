@@ -1,18 +1,21 @@
 """archon_tpu_torch -- the PyTorch/CUDA port of archon_tpu for NVIDIA Hopper.
 
-The forward BWT (``core.fast2.bwt_v3``), the a6 compressor (``core.a6``) and
-the device inverse BWT (``core.unbwt``) run on torch tensors; their sorts go
-through hand-written CUDA kernels (``csrc/sort.cu``: a per-tile bitonic
+The forward BWT (``core.fast2.bwt_v3``; the v1 sorters ``core.doubling`` and
+``core.fast``, the induced-sorting path ``core.sais_tpu`` and the IT-2
+reduced-volume path ``core.it2`` beside it), the a6 compressor (``core.a6``)
+and the device inverse BWT (``core.unbwt``) run on torch tensors; their sorts
+go through hand-written CUDA kernels (``csrc/sort.cu``: a per-tile bitonic
 sort and merge-path merge levels, ports of ``archon_tpu/ops/pallas_sort.py``)
 on CUDA tensors, and through their plain PyTorch twins on CPU tensors.
 Output is byte-identical with the JAX package.  The package imports no JAX
 and nothing of ``archon_tpu``: the host-side modules it needs (``native``
-with its C++ source, ``entropy``, ``golden``, ``config.ArchonConfig`` and the
-container framing) are its own copies, under the JAX package's names.
+with its C++ source, ``entropy``, ``golden``, ``ops.itn``, ``ops.sais``,
+``utils``, ``config.ArchonConfig`` and the container framing) are its own
+copies, under the JAX package's names.
 
 There are no weights and no learned state to carry between the packages:
 both take the same input bytes and the same configuration (generation
-a4/a7, block size, pack, impl), and ``config.ArchonConfig`` has the JAX
+a4/a7, block size, pack, impl in micro, v3, stream, it2), and ``config.ArchonConfig`` has the JAX
 package's fields, so no converter exists or is needed.
 
 Top-level API (lazily imported).  Every function that runs on a device

@@ -1,14 +1,17 @@
 """Batched (block-parallel) forward BWT: B equal-length blocks as the rows
-of one ``(B, n)`` tensor (port of the v3 family of
-``archon_tpu/core/batched.py``; names and structure kept).
+of one ``(B, n)`` tensor (port of ``archon_tpu/core/batched.py``; names and
+structure kept).  The v3 family comes first, the v1 family (the 2-D
+``core.fast``: ``suffix_ranks_batched``, ``bwt_forward_batched``,
+``suffix_arrays_batched``) at the end.
 
 Every row runs the pipeline of ``core/fast2.bwt_v3`` in lockstep: one
 doubling schedule ``k = 12, 48, ...`` for the batch, every sort a
 ``ops.sort.sort_rows`` over all rows at once (on CUDA one launch of the tile
 sort and one of each merge level for the whole batch).  A formula that is
 the 1-D one along the last axis is the same function as in ``core/fast2``
-(``_trigram_keys``, ``_quad_keys`` in place of ``_shifted2``,
-``_group_ranks``, ``_refine_in_groups``, ``_narrow_caps``); what differs here
+(``_trigram_keys``, ``_packed3``, ``_quad_keys`` in place of ``_shifted2``,
+``_group_ranks`` in place of ``_positional_ranks2`` and
+``_actives_from_heads2``, ``_refine_in_groups``, ``_narrow_caps``); what differs here
 is what has a row axis of its own: the sorts, the gathers and scatters, the
 per-row counts.
 
@@ -33,7 +36,8 @@ from __future__ import annotations
 import torch
 
 from ..ops.sort import sort_rows
-from .doubling import SENT_SMALL
+from .doubling import SENT_SMALL, _Counter, _heads, _packed3
+from .fast import _ranks_fused, _Stages
 from .fast2 import (
     _BIG,
     _I32,
@@ -42,6 +46,7 @@ from .fast2 import (
     _narrow_caps,
     _quad_keys,
     _refine_in_groups,
+    _tie_members,
     _trigram_keys,
 )
 
@@ -50,25 +55,16 @@ __all__ = [
     "bwt_batched_micro_certified",
     "bwt_batched_v3",
     "bwt_batched_v3_certified",
+    "bwt_forward_batched",
+    "suffix_arrays_batched",
+    "suffix_ranks_batched",
     "verify_bwt_batched",
 ]
 
 _trigram_keys2 = _trigram_keys  # (B, n) -> (B, n + 9): the 1-D formula along the last axis
 
 
-class _Counter:
-    """Sorting rounds run (bootstrap, full, micro and narrowed) and active
-    counts read back since the last ``reset``."""
-
-    def __init__(self):
-        self.reset()
-
-    def reset(self):
-        self.rounds = 0
-        self.host_syncs = 0
-
-
-stats = _Counter()
+stats = _Counter()  # of the batched sorters of this module
 
 
 def _max_count(na: torch.Tensor) -> int:
@@ -443,3 +439,92 @@ def verify_bwt_batched(data2, rank2, L2, base2, sentinel: str = SENT_SMALL) -> t
     c_eq = c_s[:, :-1] == c_s[:, 1:]
     adj_ok = (c_lt | (c_eq & (nxt_s[:, :-1] < nxt_s[:, 1:]))).all(dim=1)
     return perm_ok & adj_ok & (L_s == L2).all(dim=1) & (base2 == rank2[:, 0])
+
+
+# ---------------------------------------------------------------- v1 family
+
+
+def _inverted_round2(keys):
+    """One batched round that inverts its own ranks: sort ``keys`` with the
+    index riding along, positional ranks, inversion: (rank, nactive), nactive
+    a (B,) tensor.  The 2-D ``fast2._inverted_round``."""
+    B, n = keys[0].shape
+    iota2 = _row_iota(B, n, keys[0].device)
+    *ks, sorted_idx = sort_rows(keys, (iota2,))
+    ranks_sorted, active_s = _group_ranks(ks, iota2)
+    stats.rounds += 1
+    return _invert_rows(sorted_idx, ranks_sorted), active_s.sum(dim=1, dtype=_I32)
+
+
+def _init2(data2: torch.Tensor, sentinel: str):
+    """Order-3 positional ranks per row: (rank, nactive)."""
+    return _inverted_round2([_packed3(data2, sentinel)])
+
+
+def _round_full2(rank: torch.Tensor, k: int, sentinel: str):
+    """One full-width quadrupling round per row: (new_rank, nactive)."""
+    return _inverted_round2(_quad_keys(rank, k, sentinel))
+
+
+def _compact2(rank: torch.Tensor, cap: int) -> torch.Tensor:
+    """Per-row active positions (non-singleton groups), -1-padded to cap."""
+    B, n = rank.shape
+    r_s, idx_s = sort_rows((rank,), (_row_iota(B, n, rank.device),))
+    active = _tie_members(_heads([r_s]))
+    _, pos = sort_rows((torch.where(active, 0, 1).to(_I32),), (idx_s,))
+    keep = _row_iota(B, cap, rank.device) < active.sum(dim=1, keepdim=True)
+    return torch.where(keep, pos[:, :cap], -1)
+
+
+def _round_active2(rank: torch.Tensor, apos: torch.Tensor, k: int, sentinel: str):
+    """Refine only the active positions per row (capacity C = apos.shape[1]):
+    (rank, new_apos, nactive).  It is ``_round_active2c`` with the group-head
+    rank read from ``rank`` instead of carried from the round before."""
+    valid = apos >= 0
+    ar0 = _take_rows(rank, torch.where(valid, apos, 0))
+    rank, new_apos, _, nactive = _round_active2c(rank, apos, ar0, k, sentinel)
+    return rank, new_apos, nactive
+
+
+_STAGES2 = _Stages(_init2, _round_full2, _compact2, _round_active2, _max_count)
+
+
+def suffix_ranks_batched(data2: torch.Tensor, sentinel: str = SENT_SMALL) -> torch.Tensor:
+    """Rank arrays (inverse SAs) of every row of the (B, n) uint8 ``data2``.
+
+    The schedule of ``core.fast._ranks_fused`` over this module's stages:
+    full quadrupling rounds while more than 1/4 of any block's suffixes are
+    tied, then narrowed rounds at capacity n/4 and n/32, with all blocks
+    advancing in lockstep under one ``k``.  Blocks that finish early ride
+    along idempotently (their rounds are no-ops by the positional-rank
+    invariant)."""
+    B, n = data2.shape
+    if n <= 1:
+        return torch.zeros((B, n), dtype=_I32, device=data2.device)
+    return _ranks_fused(data2, sentinel, _STAGES2)
+
+
+def bwt_forward_batched(data2: torch.Tensor, sentinel: str = SENT_SMALL):
+    """Block-parallel forward BWT on the v1 sorter: (B, n) uint8 -> (L2,
+    base2, rank2).
+
+    L2[b, rank2[b, p]] = data2[b, (p-1) mod n]; base2[b] = rank2[b, 0].
+    Rank-direct emission (no SA inversion, no random gather), per block: the
+    batched ``core.bwt.bwt_forward_fast``."""
+    rank = suffix_ranks_batched(data2, sentinel)
+    if data2.shape[1] == 0:
+        return data2, rank.new_zeros(data2.shape[0]), rank
+    return _invert_rows(rank, torch.roll(data2, 1, dims=1)), rank[:, 0], rank
+
+
+def suffix_arrays_batched(data2, sentinel: str = SENT_SMALL, device="cuda"):
+    """Per-row suffix arrays of a (B, n) numpy uint8 array (or a tensor,
+    which stays where it is), as a numpy int32 array: a host convenience
+    that inverts the rank rows."""
+    if not isinstance(data2, torch.Tensor):
+        from ..io.blocks import as_byte_tensor
+
+        data2 = as_byte_tensor(data2, device)
+    rank = suffix_ranks_batched(data2, sentinel)
+    B, n = rank.shape
+    return _invert_rows(rank, _row_iota(B, n, rank.device)).cpu().numpy()

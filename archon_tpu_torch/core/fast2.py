@@ -17,12 +17,11 @@ drops them; ``index_put_`` would fault).  Every key is int32.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..ops.scan import blocked_cummax
 from ..ops.sort import sort_operands
-from .doubling import SENT_SMALL, _invert_permutation
+from .doubling import SENT_SMALL, _heads, _invert_permutation, _iota, _quad_keys, stats
 
 _BIG = 0x7FFFFFFF
 _EXT_BASE = 512
@@ -30,23 +29,10 @@ _TILE = 32
 _I32 = torch.int32
 
 
-def _iota(n: int, device) -> torch.Tensor:
-    return torch.arange(n, dtype=_I32, device=device)
-
-
 def _sort_ctx(keys, iota, payloads):
     """Stable lexicographic sort by ``keys``; ``iota`` and ``payloads`` ride
     along (the sorted iota is the round's sorted order)."""
     return sort_operands(keys, (iota, *payloads))
-
-
-def _heads(sorted_keys) -> torch.Tensor:
-    """Group-head flags along the last axis: True where any key differs from
-    its predecessor."""
-    diff = sorted_keys[0][..., 1:] != sorted_keys[0][..., :-1]
-    for k in sorted_keys[1:]:
-        diff = diff | (k[..., 1:] != k[..., :-1])
-    return torch.cat([diff.new_ones((*diff.shape[:-1], 1)), diff], dim=-1)
 
 
 def _tie_members(head: torch.Tensor) -> torch.Tensor:
@@ -66,7 +52,15 @@ def _epilogue(sorted_keys, iota):
     """Per-round epilogue: positional group ranks, active flags (members of
     tie groups), active count."""
     ranks_sorted, active_s = _group_ranks(sorted_keys, iota)
-    return ranks_sorted, active_s, int(active_s.sum())
+    return ranks_sorted, active_s, _count(active_s)
+
+
+def _count(flags: torch.Tensor) -> int:
+    """Set flags of one sorting round, read back to the host (the round's
+    one sync; ``doubling.stats`` counts both)."""
+    stats.rounds += 1
+    stats.host_syncs += 1
+    return int(flags.sum())
 
 
 def _refine_in_groups(ks, pos_s, iota_c):
@@ -112,20 +106,6 @@ def _inverted_round(keys):
     *ks, sorted_idx = _sort_ctx(keys, iota, ())
     ranks_sorted, active_s, nactive = _epilogue(ks, iota)
     return _invert_permutation(sorted_idx, ranks_sorted), nactive, sorted_idx, ranks_sorted, active_s
-
-
-def _quad_keys(rank: torch.Tensor, k: int, sentinel: str):
-    """The quadrupling round's keys (rank[p], rank[p+k], rank[p+2k],
-    rank[p+3k]) along the last axis, off_end past the end."""
-    n = rank.shape[-1]
-    off_end = -1 if sentinel == SENT_SMALL else n + 1
-    padded = torch.cat([rank, torch.full_like(rank, off_end)], dim=-1)
-
-    def shifted(j):
-        s = min(j * k, n)
-        return padded[..., s : s + n]
-
-    return [rank, shifted(1), shifted(2), shifted(3)]
 
 
 def _round_full_c(rank: torch.Tensor, k: int, sentinel: str):
@@ -199,13 +179,9 @@ def bwt_forward_v2(data: torch.Tensor, sentinel: str = SENT_SMALL):
 def suffix_array_fast2(data, sentinel: str = SENT_SMALL, device="cuda"):
     """Host convenience wrapper: bytes or a numpy uint8 array in, the suffix
     array as a numpy int32 array out, computed on ``device``."""
-    from ..io.blocks import as_device
+    from ..io.blocks import as_byte_tensor
 
-    arr = np.asarray(data, np.uint8) if isinstance(data, np.ndarray) else np.frombuffer(
-        bytes(data), np.uint8
-    )
-    t = torch.from_numpy(arr.copy()).to(as_device(device))
-    return suffix_array_v2(t, sentinel).cpu().numpy()
+    return suffix_array_v2(as_byte_tensor(data, device), sentinel).cpu().numpy()
 
 
 def _bootstrap_sorted(data: torch.Tensor, prev: torch.Tensor, sentinel: str):
@@ -270,7 +246,7 @@ def _round_active_c(rank, apos, ar0, k: int, sentinel: str):
     _, new_apos, new_ar0 = sort_operands(
         (key,), (torch.where(still, pos_s, -1), new_rank_s)
     )
-    nactive = int(still.sum())
+    nactive = _count(still)
     keep = iota_c < nactive
     return (
         rank,
@@ -356,7 +332,7 @@ def _micro_round(G, g: int, pos, r, j_lo: int, j_hi: int, sentinel: str):
         keys.append(torch.where(valid & (p < n), G[p.clamp(max=n - 1)], off_end))
     *ks, pos_s = sort_operands(keys, (torch.where(valid, pos, -1),))
     r_new, still, pad = _refine_in_groups(ks, pos_s, iota_c)
-    return pos_s, torch.where(pad, _BIG, r_new), int(still.sum())
+    return pos_s, torch.where(pad, _BIG, r_new), _count(still)
 
 
 def bwt_v3(data: torch.Tensor, sentinel: str = SENT_SMALL):

@@ -13,9 +13,11 @@ written as one frame; ``pack=True`` entropy-packs each L on the host
   into (B, n) batches through ``core.batched.bwt_batched_micro*``, rows it
   could not resolve recomputed by ``_fallback_row``;
 - ``v3``: the batched program with its cascade inside, no fallback;
-- ``stream``: block by block through ``core.fast2.bwt_v3``.
+- ``stream``: block by block through ``core.fast2.bwt_v3``;
+- ``it2``: block by block through ``core.it2.bwt_it2_async``, a block it
+  flags recomputed by ``bwt_v3``.
 
-All three write the same bytes.  ``encode_to_path`` appends frames to a file
+All four write the same bytes.  ``encode_to_path`` appends frames to a file
 and can resume an interrupted encode; ``extract_block`` cuts one block out
 as a single-block a4/a7 blob.  Decode is the native LF walk.
 """
@@ -36,10 +38,12 @@ from ..entropy.pack import pack_block, unpack_block
 from ..golden import sa as golden
 
 __all__ = ["encode_file", "encode_to_path", "decode_file", "extract_block", "as_device",
+           "as_byte_tensor",
            "host_walk", "DEFAULT_BLOCK"]
 
 MAGIC = b"ATA1"
 MAGIC_PACKED = b"ATA2"  # per-block MTF+RLE0+Huffman payloads (entropy/pack)
+MAGIC_MEGABLOCK = b"ATM1"  # the sharded megablock container of the JAX package
 GENERATIONS = {"a4": 0, "a7": 1}
 DEFAULT_BLOCK = 1 << 22  # 4 MiB, the x1 historical default (ArchonX1.c:19)
 FLAG_PACKED = 1
@@ -64,6 +68,13 @@ def as_device(device) -> torch.device:
     return dev
 
 
+def as_byte_tensor(data, device) -> torch.Tensor:
+    """Bytes or a numpy uint8 array (of any shape) as a uint8 tensor on
+    ``device``, through ``as_device``."""
+    arr = data if isinstance(data, np.ndarray) else np.frombuffer(bytes(data), np.uint8)
+    return torch.from_numpy(np.array(arr, np.uint8)).to(as_device(device))
+
+
 def host_walk() -> str:
     """The host LF walk that verify and decode use: ``"native"`` (the C++
     library, built on first call) or ``"golden"`` (the numpy model, taken
@@ -80,11 +91,19 @@ def _inverse(L: np.ndarray, base: int, sentinel: str, use_native: bool) -> np.nd
     return golden.bwt_inverse(L, base, sentinel)
 
 
-def _streamed_forward(blocks: list[bytes], generation: str, verify: bool, device) -> list:
+def _streamed_forward(blocks: list[bytes], generation: str, verify: bool, device,
+                      use_it2: bool = False) -> list:
     """Per-block forward BWT stream (``impl="stream"``): each block runs
     ``bwt_v3`` on ``device``, exact for every input, so no fallback rows
     exist; at most ``PIPE_BLOCKS`` results stay on the device before the
     oldest is copied back, bounding device memory to O(window * block).
+
+    ``use_it2`` (``impl="it2"``) sends each block through the IT-2
+    reduced-volume candidate instead (``core.it2.bwt_it2_async``): a window
+    of blocks is enqueued before the oldest is resolved, and a block whose
+    static caps cannot resolve it exactly (``ok`` false at finish time) is
+    recomputed through ``bwt_v3`` and counted in
+    ``_streamed_forward.it2_fallbacks``.
 
     ``verify=True`` round-trips every block through the host LF walk
     (``native.unbwt(L, base) == block``) on a thread pool, each block as soon
@@ -97,6 +116,25 @@ def _streamed_forward(blocks: list[bytes], generation: str, verify: bool, device
     use_native = verify and native.available()
     window = _pipe_blocks(len(blocks))
 
+    if use_it2:
+        from ..core.it2 import bwt_it2_async
+
+        def dispatch(arr):
+            return bwt_it2_async(arr, sentinel)
+
+        def resolve(arr, finish):
+            L, base, ok = finish()
+            if ok:
+                return L, base
+            _streamed_forward.it2_fallbacks += 1
+            return bwt_v3(arr, sentinel)
+    else:
+        def dispatch(arr):
+            return bwt_v3(arr, sentinel)
+
+        def resolve(arr, out):
+            return out
+
     def roundtrips(L, base, orig):
         # the LF walk of (L, base) yields the block in its ORIGINAL
         # orientation: the reversal is part of the format convention
@@ -108,7 +146,8 @@ def _streamed_forward(blocks: list[bytes], generation: str, verify: bool, device
         def fetch(item):
             if item is None:
                 return np.zeros(0, np.uint8), 0, None
-            orig, L, base = item
+            orig, arr, out = item
+            L, base = resolve(arr, out)
             L = L.cpu().numpy()
             return L, base, pool.submit(roundtrips, L, base, orig) if verify else None
 
@@ -117,7 +156,8 @@ def _streamed_forward(blocks: list[bytes], generation: str, verify: bool, device
             if len(b) == 0:
                 pending.append(None)
             else:
-                pending.append((b, *bwt_v3(_reversed_on(dev, [b])[0], sentinel)))
+                arr = _reversed_on(dev, [b])[0]
+                pending.append((b, arr, dispatch(arr)))
             if len(pending) > window:
                 fetched.append(fetch(pending.popleft()))
         while pending:
@@ -126,6 +166,9 @@ def _streamed_forward(blocks: list[bytes], generation: str, verify: bool, device
     if bad:
         raise AssertionError(f"round-trip verification failed for block(s) {bad} (internal error)")
     return [(L, base) for (L, base, _ok) in fetched]
+
+
+_streamed_forward.it2_fallbacks = 0  # blocks it2 flagged and bwt_v3 recomputed, since import
 
 
 def _reversed_on(dev: torch.device, blks) -> torch.Tensor:
@@ -162,7 +205,8 @@ def _batched_forward(blocks: list[bytes], generation: str, verify: bool = True,
     """Transform blocks, batching equal-length runs: [(L, base), ...].
 
     ``verify=True`` (default) runs the per-block LF certificate on the
-    device for ``micro`` and ``v3``, and the host round trip for ``stream``.
+    device for ``micro`` and ``v3``, and the host round trip for ``stream``
+    and ``it2``.
 
     The device program is the cascade-free fast path by default
     (``impl="micro"``, ``core.batched.bwt_batched_micro*``): rows it reports
@@ -181,7 +225,7 @@ def _batched_forward(blocks: list[bytes], generation: str, verify: bool = True,
     if impl == "stream":
         return _streamed_forward(blocks, generation, verify, device)
     if impl == "it2":
-        raise ValueError("impl 'it2' is not ported yet: it comes with the slice that ports core/it2")
+        return _streamed_forward(blocks, generation, verify, device, use_it2=True)
     if impl not in ("micro", "v3"):
         raise ValueError(f"unknown impl {impl!r}")
     dev = as_device(device)
@@ -290,6 +334,15 @@ def _check_args(generation: str, block_size: int, dp: int) -> None:
         )
 
 
+def _reject_megablock(blob: bytes) -> None:
+    if blob[:4] == MAGIC_MEGABLOCK:
+        raise ValueError(
+            "an ATM1 container is one megablock sharded over several devices "
+            "(parallel.megapipe), which the port does not have yet: it comes with the "
+            "multi-device slice"
+        )
+
+
 def _split(data: bytes, block_size: int) -> list[bytes]:
     return [data[i : i + block_size] for i in range(0, len(data), block_size)] or [b""]
 
@@ -307,9 +360,10 @@ def encode_file(
     """Encode ``data`` into the blocked container, byte-identical with
     ``archon_tpu.encode_file``.  ``impl`` selects the device program (micro:
     cascade-free batched fast path; v3: batched with the cascade inside;
-    stream: block by block; all write the same bytes).  ``verify`` is the
-    device LF certificate for micro and v3 and the host round trip for
-    stream.  ``pack=True`` writes the compressing ATA2 container
+    stream: block by block; it2: block by block through the IT-2 candidate
+    with its ``bwt_v3`` fallback; all write the same bytes).  ``verify`` is
+    the device LF certificate for micro and v3 and the host round trip for
+    stream and it2.  ``pack=True`` writes the compressing ATA2 container
     (MTF+RLE0+Huffman payloads).  ``dp > 1`` (a device mesh) is not ported."""
     _check_args(generation, block_size, dp)
     blocks = _split(data, block_size)
@@ -464,6 +518,7 @@ def decode_file(blob: bytes, strict: bool = True, on_error=None) -> bytes:
     faults per block: a corrupt block (bad base, bad packed payload, or an
     LF walk that is not one cycle) decodes to zero bytes and is reported
     through ``on_error(block_index, exception)``."""
+    _reject_megablock(blob)
     packed = blob[:4] == MAGIC_PACKED
     if blob[:4] != MAGIC and not packed:
         raise ValueError("bad magic")
@@ -519,6 +574,7 @@ def extract_block(blob: bytes, index: int) -> bytes:
     u32 base, what the reference a4/a7 decoder reads).  Packed (ATA2) frames
     are entropy-unpacked first, so a block of either container comes out the
     same."""
+    _reject_megablock(blob)
     packed = blob[:4] == MAGIC_PACKED
     if blob[:4] != MAGIC and not packed:
         raise ValueError("bad magic")

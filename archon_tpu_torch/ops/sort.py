@@ -36,7 +36,8 @@ Each kernel has a plain PyTorch twin (``sort_tiles_ref``, ``merge_level_ref``:
 the same tuples in and out, by stable ``torch.sort`` passes within each tile
 or run pair; ``sort_operands_ref`` and ``sort_rows_ref``: stable passes from
 the last key to the first, then gathers).  A wrapper takes its twin only for
-tensors on the CPU; on a CUDA tensor it launches its kernel or raises.
+tensors on the CPU; on a CUDA tensor it launches its kernel or raises.  To
+inspect a path without the kernels, give it CPU tensors or call the twins.
 ``sort_tiles.launches`` and ``merge_level.launches`` count kernel launches.
 """
 

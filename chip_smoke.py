@@ -12,7 +12,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    index at 2^24, 49 keys through K2 levels, the a6 bit path's 4 window keys
    + index at the bit width of a 1 MiB ``fix`` input, and the real sorts of
    one 4 MiB text block: the bootstrap's trigram keys and the full round's
-   rank keys); timed (K1, all K2 levels of one sort, the whole
+   rank keys, and the sorts the IT-2 and SA-IS paths run on that block: 5
+   keys + index with 2 payloads at 2^22, 2 keys + index at 2^23 + 2, 1 key +
+   1 payload at 2^21); timed (K1, all K2 levels of one sort, the whole
    ``sort_operands``, each beside its plain twin) at 2^22 x 6 operands with
    random keys, at the text block's real sorts, and at 1 key + index at
    2^24;
@@ -46,11 +48,29 @@ Phases, each printing its own lines; any failure exits non-zero:
 10. resume: ``encode_to_path`` cut in the middle of a frame and resumed, then
     resumed after one input byte changed; ``extract_block`` of both
     containers;
-11. one JSON line describing the kernels, then the device line last.
+11. the v1 sorters on one 4 MiB text block and two planted-repeat blocks
+    (``suffix_array``, ``suffix_array_fast``, ``bwt_forward``,
+    ``bwt_forward_fast``, and ``bwt_forward_batched`` on 4 rows of 1 MiB):
+    every shape of sort they give the kernels (full width, and the narrowed
+    rounds and compactions at n/4 and n/32 with their pads) held to its plain
+    twin first, then the results equal to ``bwt_v3``, the suffix array
+    certified by ``verify_sa``; ms, rounds, host syncs, launches;
+12. ``bwt_sais`` on the text block, a4 and a7, equal to ``bwt_v3`` (timed
+    over one call after the counted one, as ``bwt_it2`` and its stages are);
+13. ``bwt_it2`` on the text block, a4 and a7 (``ok``, equal to ``bwt_v3``, its
+    three stages timed apart), the a4 64 MiB encode with ``impl="it2"``
+    (verify on and off) byte-identical with the stream's, its blocks that
+    fell back to ``bwt_v3`` counted, and Gauntlet blocks through
+    ``impl="it2"`` (flagged or exact, the stream's container either way);
+14. the command line in a subprocess: ``e --impl it2 --profile-dir`` on a
+    16 MiB file (stage report, a trace file), ``d`` back to the input;
+15. ``utils.tools.memory_report`` beside the measured peak of ``bwt_v3``;
+16. one JSON line describing the kernels, then the device line last.
 
 Phases 5 and 6 zero the kernel launch counts before each encode or device
-decode and fail unless both kernels launched in it; so do the stream's and
-the batched path's 64 MiB runs, whose counts the JSON line reports.
+decode and fail unless both kernels launched in it; so do the 64 MiB runs of
+the stream, the batched path and ``impl="it2"``, whose counts the JSON line
+reports, and every call of phases 11 to 13.
 
 The script uses the port's own API only; its test data and its BWT
 reference are made here, from fixed seeds.
@@ -58,6 +78,7 @@ reference are made here, from fixed seeds.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import struct
@@ -107,20 +128,31 @@ def phase_build():
         raise RuntimeError("the native host LF walk did not build: verify would measure numpy")
 
 
-def _time_ms(fn):
-    """Mean milliseconds of ``fn`` over ``TIMED_CALLS`` calls after one warm-up
-    call, by CUDA events."""
+def _events_ms(fn, calls=TIMED_CALLS):
+    """Mean milliseconds of ``fn`` over ``calls`` calls, by CUDA events."""
     import torch
 
-    fn()
     torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(TIMED_CALLS):
+    for _ in range(calls):
         fn()
     stop.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / TIMED_CALLS
+    return start.elapsed_time(stop) / calls
+
+
+def _timed(fn, calls=TIMED_CALLS):
+    """``fn``'s result from one warm-up call, and its mean milliseconds over
+    ``calls`` calls after it."""
+    out = fn()
+    return out, _events_ms(fn, calls)
+
+
+def _time_ms(fn):
+    """Mean milliseconds of ``fn`` over ``TIMED_CALLS`` calls after one
+    warm-up call."""
+    return _timed(fn)[1]
 
 
 def _max_err(got, want) -> int:
@@ -133,6 +165,39 @@ def _max_err(got, want) -> int:
     return int((got.long() - want.long()).abs().max())
 
 
+KERNEL_ERR = {"sort_tiles": 0, "merge_level": 0}  # largest error against a twin so far
+
+
+def check_sort(name, keys, payloads, tag="kernels"):
+    """K1, every K2 level and the whole ``sort_operands`` on these operands
+    against their plain twins; raises unless all are equal."""
+    import torch
+
+    from archon_tpu_torch.ops import sort as S
+
+    err = KERNEL_ERR
+    keys = [k.contiguous() for k in keys]
+    mat = torch.stack(keys)
+    tuples = S.sort_tiles(mat)
+    e1 = _max_err(tuples, S.sort_tiles_ref(mat))
+    run, e2 = S.TILE, 0
+    while run < tuples.shape[1]:
+        nxt = S.merge_level(mat, tuples, run)
+        e2 = max(e2, _max_err(nxt, S.merge_level_ref(mat, tuples, run)))
+        tuples, run = nxt, run * 2
+    got = S.sort_operands(keys, payloads)
+    want = S.sort_operands_ref(keys, payloads)
+    e3 = max(_max_err(g, w) for g, w in zip(got, want))
+    torch.cuda.synchronize()
+    err["sort_tiles"] = max(err["sort_tiles"], e1)
+    err["merge_level"] = max(err["merge_level"], e2, e3)
+    status = "ok" if e1 == e2 == e3 == 0 else "MISMATCH"
+    print(f"[{tag}] {name}: n={keys[0].shape[0]} keys={len(keys)}+index "
+          f"payloads={len(payloads)} tile_err={e1} merge_err={e2} sort_err={e3} {status}")
+    if status != "ok":
+        raise AssertionError(f"kernel disagrees with its plain twin: {name}")
+
+
 def phase_kernels():
     """Every kernel against its twin on the card; returns per-kernel stats."""
     import numpy as np
@@ -142,32 +207,11 @@ def phase_kernels():
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(2024)
-    err = {"sort_tiles": 0, "merge_level": 0}
+    check = check_sort
 
     def keyset(n, count, hi):
         return [torch.from_numpy(rng.integers(-1, hi, n).astype(np.int32)).to(dev)
                 for _ in range(count)]
-
-    def check(name, keys, payloads):
-        mat = torch.stack(keys)
-        tuples = S.sort_tiles(mat)
-        e1 = _max_err(tuples, S.sort_tiles_ref(mat))
-        run, e2 = S.TILE, 0
-        while run < tuples.shape[1]:
-            nxt = S.merge_level(mat, tuples, run)
-            e2 = max(e2, _max_err(nxt, S.merge_level_ref(mat, tuples, run)))
-            tuples, run = nxt, run * 2
-        got = S.sort_operands(keys, payloads)
-        want = S.sort_operands_ref(keys, payloads)
-        e3 = max(_max_err(g, w) for g, w in zip(got, want))
-        torch.cuda.synchronize()
-        err["sort_tiles"] = max(err["sort_tiles"], e1)
-        err["merge_level"] = max(err["merge_level"], e2, e3)
-        status = "ok" if e1 == e2 == e3 == 0 else "MISMATCH"
-        print(f"[kernels] {name}: n={keys[0].shape[0]} keys={len(keys)}+index "
-              f"payloads={len(payloads)} tile_err={e1} merge_err={e2} sort_err={e3} {status}")
-        if status != "ok":
-            raise AssertionError(f"kernel disagrees with its plain twin: {name}")
 
     n = 1 << 22
     iota = torch.arange(n, dtype=torch.int32, device=dev)
@@ -193,15 +237,19 @@ def phase_kernels():
     win_keys = _bit_window_keys(synthetic_text(MIB, seed=7), dev)
     check("a6 bit bootstrap, 4 base-3 16-windows + index, 1 MiB fix", win_keys,
           [torch.arange(win_keys[0].shape[0], device=dev)])
-    text_sorts = _text_block_sorts(synthetic_text(4 * MIB, seed=7), dev)
+    text_sorts = _text_block_sorts(synthetic_text(4 * MIB, seed=7))
     for label, (keys, payloads) in text_sorts.items():
+        check(f"4 MiB text block, {label}", keys, payloads)
+    new_sorts = _it2_sais_sorts(synthetic_text(4 * MIB, seed=7))
+    for label, (keys, payloads) in new_sorts.items():
         check(f"4 MiB text block, {label}", keys, payloads)
 
     # timing: the full round's shape at random keys, the two real sorts of
     # one text block, and 1 key + index at 2^24
     rows = {"random keys (n/64 distinct), 2^22": (main_keys, [iota, prev]), **{
         f"text block {label}, 2^22": sorts for label, sorts in text_sorts.items()},
-        "1 key 0..255 + index, 2^24": (big_keys, big_pay)}
+        "1 key 0..255 + index, 2^24": (big_keys, big_pay),
+        **{f"text block {label}": sorts for label, sorts in new_sorts.items()}}
     times = {label: _time_sort(keys, payloads) for label, (keys, payloads) in rows.items()}
     for label, t in times.items():
         print(f"[timing] {label}, {t['keys']} keys + index, {t['payloads']} payloads: "
@@ -220,10 +268,10 @@ def phase_kernels():
     whole = {"whole_sort_ms": t["sort"], "whole_sort_torch_ms": t["sort_plain"]}
     for name, b in bounds.items():
         print(f"[timing] {name} at 2^22 x 4 keys: bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
-    return {"sort_tiles": {"max_abs_err": err["sort_tiles"], "ms": t["k1"],
+    return {"sort_tiles": {"ms": t["k1"],
                            "plain_ms": t["k1_plain"], **bounds["sort_tiles"],
                            "library_ms": None, **whole},
-            "merge_level": {"max_abs_err": err["merge_level"], "ms": t["last"],
+            "merge_level": {"ms": t["last"],
                             "plain_ms": t["last_plain"], **bounds["merge_level"],
                             "library_ms": None, **whole}}
 
@@ -260,14 +308,11 @@ def _time_sort(keys, payloads) -> dict:
     }
 
 
-def _text_block_sorts(block: bytes, dev) -> dict:
+def _text_block_sorts(block: bytes) -> dict:
     """The full-width sorts ``bwt_v3`` runs on one text block, as the main
     path gives them (the block reversed, a4): the bootstrap's four
     packed-trigram keys and each full round's four rank keys, with the index
     and the previous byte as payloads.  Captured at ``fast2._sort_ctx``."""
-    import numpy as np
-    import torch
-
     from archon_tpu_torch.core import fast2
 
     seen = []
@@ -279,13 +324,59 @@ def _text_block_sorts(block: bytes, dev) -> dict:
 
     fast2._sort_ctx = capture
     try:
-        fast2.bwt_v3(torch.from_numpy(np.frombuffer(block[::-1], np.uint8).copy()).to(dev), "small")
+        fast2.bwt_v3(_reversed_block(block), "small")
     finally:
         fast2._sort_ctx = sort_ctx
     if len(seen) < 2:
         raise AssertionError(f"bwt_v3 ran {len(seen)} full-width sorts on a text block, not 2+")
     return {("bootstrap trigram keys" if i == 0 else f"full round {i} rank keys"): s
             for i, s in enumerate(seen)}
+
+
+def _captured_sorts(modules, run, limit=None, attr="sort_operands") -> list:
+    """The sorts that ``run()`` makes through the ``attr`` of ``modules``, as
+    (keys, payloads) pairs: the first ``limit`` of them, or with no limit the
+    first of each shape (key count, payload count, operand shape)."""
+    real, seen, shapes = getattr(modules[0], attr), [], set()
+
+    def capture(keys, payloads=()):
+        shape = (len(keys), len(payloads), tuple(keys[0].shape))
+        if len(seen) < limit if limit else shape not in shapes:
+            shapes.add(shape)
+            seen.append((list(keys), list(payloads)))
+        return real(keys, payloads)
+
+    for module in modules:
+        setattr(module, attr, capture)
+    try:
+        run()
+    finally:
+        for module in modules:
+            setattr(module, attr, real)
+    return seen
+
+
+def _it2_sais_sorts(block: bytes) -> dict:
+    """The sorts that the IT-2 and SA-IS paths add, with the keys one text
+    block gives them (the block reversed, a4): IT-2's naming sort (the lucky
+    flag and four phrase keys; index and phrase length as payloads), its
+    reduced-string sort (1 key, 1 payload, at M = 2^21 for 4 MiB) and its
+    merge sort (four phrase keys and the reduced rank; index and previous
+    byte), and SA-IS's first joint rank (2 keys + index at 2(n + 1))."""
+    from archon_tpu_torch.core import it2, sais_tpu
+
+    arr = _reversed_block(block)
+    naming, reduced, merge = _captured_sorts((it2,), lambda: it2.bwt_it2(arr, "small"), 3)
+    (joint,) = _captured_sorts((sais_tpu,), lambda: sais_tpu.suffix_ranks_sais(arr, "small"), 1)
+    sorts = {"IT-2 naming sort": naming, "IT-2 reduced-string sort": reduced,
+             "IT-2 merge sort": merge, "SA-IS joint rank": joint}
+    shapes = {label: (len(k), len(pl), k[0].shape[0]) for label, (k, pl) in sorts.items()}
+    n = len(block)
+    if shapes != {"IT-2 naming sort": (5, 2, n), "IT-2 merge sort": (5, 2, n),
+                  "IT-2 reduced-string sort": (1, 1, it2._reduced_capacity(n)),
+                  "SA-IS joint rank": (2, 1, 2 * n + 2)}:
+        raise AssertionError(f"the IT-2 and SA-IS sorts have other shapes than expected: {shapes}")
+    return sorts
 
 
 def _bit_window_keys(data: bytes, dev):
@@ -346,9 +437,11 @@ def synthetic_text(n: int, seed: int) -> bytes:
     return out[:n].tobytes()
 
 
+@functools.lru_cache(maxsize=8)
 def bwt_reference(block: bytes, generation: str):
     """(L, base) of the a4 (end-of-string smallest) or a7 (largest) BWT of
-    the REVERSED block, the frame convention, by plain prefix doubling."""
+    the REVERSED block, the frame convention, by plain prefix doubling.  Kept
+    per block: the phases hold many containers to the same first block."""
     import numpy as np
 
     s = np.frombuffer(block[::-1], np.uint8)
@@ -400,7 +493,7 @@ def _encode_checked(label, data, generation, block_size, verify=True, impl="stre
     want_L, want_base = bwt_reference(data[:block_size], generation)
     if not (np.array_equal(L, want_L) and base == want_base):
         raise AssertionError(f"{label}: block 0 differs from the reference BWT")
-    print(f"[{'main' if impl == 'stream' else 'batched'}] {label}: {len(data)} bytes in {dt:.4f} s "
+    print(f"[{ {'stream': 'main', 'it2': 'it2'}.get(impl, 'batched') }] {label}: {len(data)} bytes in {dt:.4f} s "
           f"= {len(data) / 1e6 / dt:.2f} MB/s (encode_file, impl {impl}, verify "
           f"{'on' if verify else 'off'}); round trip ok; block 0 == reference BWT"
           + ("; == stream container" if same_as is not None else ""))
@@ -456,17 +549,18 @@ def phase_main():
     return launches, data, stream
 
 
-def planted_repeat_block() -> bytes:
-    """1 MiB of random bits with a 1900-byte repeat planted twice (the shape
-    of tests/test_fast2.py's micro-tail cases): about 3800 actives tied past
-    the micro tail's reach."""
+def planted_repeat_block(length: int = 1900) -> bytes:
+    """1 MiB of random bits with a ``length``-byte repeat planted twice.  At
+    1900 (the shape of tests/test_fast2.py's micro-tail cases) about 3800
+    actives stay tied past the micro tail's reach; at 56 KiB a ninth of the
+    suffixes stays tied, between the v1 sorters' two narrowed capacities."""
     import numpy as np
 
     rng = np.random.default_rng(13)
     block = rng.integers(0, 2, MIB, dtype=np.uint8)
-    rep = rng.integers(0, 2, 1900, dtype=np.uint8)
-    block[1000:2900] = rep
-    block[MIB // 2 : MIB // 2 + 1900] = rep
+    rep = rng.integers(0, 2, length, dtype=np.uint8)
+    block[1000 : 1000 + length] = rep
+    block[MIB // 2 : MIB // 2 + length] = rep
     return block.tobytes()
 
 
@@ -647,6 +741,29 @@ def kernel_bounds(n: int, num_keys: int, carried: int, tile: int, n_pad: int) ->
             "merge_level": bound(2 * tuple_bytes, n_pad * carried)}
 
 
+def check_sort_rows(name, keys, payloads, tag="sort_rows"):
+    """``sort_rows`` on these operands against ``sort_rows_ref``, and its
+    launches (K1 once, K2 once per level up to the row width); raises unless
+    both are as they should be."""
+    import torch
+
+    from archon_tpu_torch.ops import sort as S
+
+    S.sort_tiles.launches = S.merge_level.launches = 0
+    got = S.sort_rows(keys, payloads)
+    k1, k2 = S.sort_tiles.launches, S.merge_level.launches
+    want = S.sort_rows_ref(keys, payloads)
+    e = max(_max_err(g, w) for g, w in zip(got, want))
+    torch.cuda.synchronize()
+    KERNEL_ERR["merge_level"] = max(KERNEL_ERR["merge_level"], e)
+    B, n = keys[0].shape
+    print(f"[{tag}] {name}: ({B}, {n}) keys={len(keys)} payloads={len(payloads)} "
+          f"row width {S.row_width(B, n)}; launches K1 {k1}, K2 {k2}; max_abs_err {e} "
+          f"{'ok' if e == 0 else 'MISMATCH'}")
+    if e or k1 != 1 or k2 != (S.row_width(B, n) // S.TILE - 1).bit_length():
+        raise AssertionError(f"sort_rows disagrees with its plain twin or its launches: {name}")
+
+
 def phase_sort_rows() -> None:
     """``sort_rows`` against ``sort_rows_ref`` on the card, exact, at the
     batched path's shapes; launches per call; timed at (8, 2^22)."""
@@ -662,19 +779,7 @@ def phase_sort_rows() -> None:
         return [torch.from_numpy(rng.integers(-1, hi, (B, n)).astype(np.int32)).to(dev)
                 for _ in range(count)]
 
-    def check(name, keys, payloads):
-        S.sort_tiles.launches = S.merge_level.launches = 0
-        got = S.sort_rows(keys, payloads)
-        k1, k2 = S.sort_tiles.launches, S.merge_level.launches
-        want = S.sort_rows_ref(keys, payloads)
-        e = max(_max_err(g, w) for g, w in zip(got, want))
-        torch.cuda.synchronize()
-        B, n = keys[0].shape
-        print(f"[sort_rows] {name}: ({B}, {n}) keys={len(keys)} payloads={len(payloads)} "
-              f"row width {S.row_width(B, n)}; launches K1 {k1}, K2 {k2}; max_abs_err {e} "
-              f"{'ok' if e == 0 else 'MISMATCH'}")
-        if e or k1 != 1 or k2 != (S.row_width(B, n) // S.TILE - 1).bit_length():
-            raise AssertionError(f"sort_rows disagrees with its plain twin or its launches: {name}")
+    check = check_sort_rows
 
     B, n = 8, 1 << 22
     iota = torch.arange(n, dtype=torch.int32, device=dev).expand(B, n)
@@ -744,7 +849,7 @@ def phase_batched(text: bytes, stream: dict) -> dict:
 
     # the unit's size: rows per dispatch unit, through ARCHON_PIPE_BLOCKS
     rates = []
-    for pipe in (1, 2, 4, 8, 16):
+    for pipe in (1, 8, 16):
         os.environ["ARCHON_PIPE_BLOCKS"] = str(pipe)
         try:
             got, dt, _ = _counted(f"micro, units of {pipe}", lambda: port.encode_file(
@@ -865,6 +970,293 @@ def phase_resume(text: bytes, stream: dict) -> None:
           f"({len(one)} bytes); ATA2 of 16 MiB: {len(packed)} bytes")
 
 
+def _reversed_block(block: bytes):
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(np.frombuffer(block[::-1], np.uint8).copy()).cuda()
+
+
+def _block_call(tag, label, fn, calls=TIMED_CALLS):
+    """One call of a 1-D sorter apart: a first call counted for its rounds,
+    host syncs and kernel launches, then ms over ``calls`` more by CUDA
+    events.  Returns (result, ms, launches)."""
+    from archon_tpu_torch.core import doubling
+
+    doubling.stats.reset()
+    out, _, launches = _counted(label, fn)
+    rounds, syncs = doubling.stats.rounds, doubling.stats.host_syncs
+    ms = _events_ms(fn, calls)
+    print(f"[{tag}] {label}: {ms:.3f} ms (CUDA events over {calls} call(s), incl. its host syncs); "
+          f"rounds {rounds}, host syncs {syncs}, launches {launches}")
+    return out, ms, launches
+
+
+def _same_bwt(label, got, want) -> None:
+    import torch
+
+    if not (torch.equal(got[0], want[0]) and int(got[1]) == int(want[1])):
+        raise AssertionError(f"{label}: (L, base) differs from bwt_v3's")
+
+
+def phase_v1(text: bytes) -> dict:
+    """The v1 sorters against ``bwt_v3`` and ``verify_sa``; returns the
+    launches of ``bwt_forward_fast`` on the text block."""
+    import torch
+
+    from archon_tpu_torch.core import batched, bwt, doubling, fast, fast2
+    from archon_tpu_torch.core.fast2 import bwt_v3
+
+    fast_launches = None
+    for name, block in (("4 MiB text block", text[: 4 * MIB]),
+                        ("1 MiB planted repeat", planted_repeat_block()),
+                        ("1 MiB planted 56 KiB repeat", planted_repeat_block(56 << 10))):
+        arr = _reversed_block(block)
+        # every shape of sort these sorters give the kernels (the 1-key init
+        # and compaction sorts, the narrowed rounds at both capacities with
+        # their pads), each held to its twins before the results are
+        sorts = _captured_sorts((fast, fast2, doubling), lambda: (
+            doubling.suffix_array(arr, "small"), bwt.bwt_forward_fast(arr, "small")))
+        for keys, payloads in sorts:
+            check_sort(f"{name}, a sort of suffix_array or bwt_forward_fast", keys, payloads, "v1")
+        widths = {k[0].shape[0] for k, _ in sorts if len(k) == 4}
+        if "56 KiB" in name and widths != {MIB, MIB // 4, MIB // 32}:
+            raise AssertionError(f"the long repeat's rounds ran at {widths}, not at n, n/4, n/32")
+        want, v3_ms, _ = _block_call("v1", f"{name}, bwt_v3 (for comparison)",
+                                     lambda: bwt_v3(arr, "small"))
+        for label, fn in (("suffix_array", lambda: doubling.suffix_array(arr, "small")),
+                          ("suffix_array_fast", lambda: fast.suffix_array_fast(
+                              arr, "small", return_device=True))):
+            sa, _, _ = _block_call("v1", f"{name}, {label}", fn)
+            if not bool(bwt.verify_sa(arr, sa, "small")):
+                raise AssertionError(f"{name}: verify_sa rejects {label}'s suffix array")
+        for label, fn in (("bwt_forward", lambda: bwt.bwt_forward(arr, "small")),
+                          ("bwt_forward_fast", lambda: bwt.bwt_forward_fast(arr, "small"))):
+            got, _, launches = _block_call("v1", f"{name}, {label}", fn)
+            _same_bwt(f"{name}, {label}", got, want)
+            if not bool(bwt.verify_sa(arr, got[2] if label == "bwt_forward"
+                                      else doubling.rank_of(got[2]), "small")):
+                raise AssertionError(f"{name}: verify_sa rejects {label}'s suffix array")
+            if label == "bwt_forward_fast" and fast_launches is None:
+                fast_launches = launches
+        print(f"[v1] {name}: suffix arrays certified by verify_sa; (L, base) of bwt_forward and "
+              f"bwt_forward_fast == bwt_v3's")
+    rows = torch.stack([_reversed_block(text[i * MIB : (i + 1) * MIB]) for i in range(2)]
+                       + [_reversed_block(planted_repeat_block()),
+                          _reversed_block(planted_repeat_block(56 << 10))])
+    row_sorts = _captured_sorts((batched,), lambda: batched.bwt_forward_batched(rows, "small"),
+                                attr="sort_rows")
+    for keys, payloads in row_sorts:
+        check_sort_rows("a sort of bwt_forward_batched", keys, payloads, "v1")
+    if {k[0].shape[1] for k, _ in row_sorts} != {MIB, MIB // 4, MIB // 32}:
+        raise AssertionError("bwt_forward_batched did not sort at n, n/4 and n/32")
+    batched.stats.reset()
+    (L2, base2, _), _, launches = _counted("bwt_forward_batched",
+                                           lambda: batched.bwt_forward_batched(rows, "small"))
+    rounds, syncs = batched.stats.rounds, batched.stats.host_syncs
+    ms = _events_ms(lambda: batched.bwt_forward_batched(rows, "small"))
+    for b in range(rows.shape[0]):
+        _same_bwt(f"bwt_forward_batched row {b}", (L2[b], base2[b]), bwt_v3(rows[b], "small"))
+    print(f"[v1] bwt_forward_batched, 2 text rows and both planted repeats of 1 MiB: {ms:.3f} ms "
+          f"(CUDA events, incl. its host syncs); rounds {rounds}, host syncs {syncs}, launches "
+          f"{launches}; every row == bwt_v3's")
+    return fast_launches
+
+
+def phase_sais(text: bytes) -> dict:
+    """``bwt_sais`` on the 4 MiB text block against ``bwt_v3``; returns its
+    launches for a4."""
+    from archon_tpu_torch.core import doubling, sais_tpu
+    from archon_tpu_torch.core.fast2 import bwt_v3
+
+    arr = _reversed_block(text[: 4 * MIB])
+    out = None
+    capped_rounds, capped_ranks = [], sais_tpu._capped_ranks
+
+    def counting(*args):
+        before = doubling.stats.rounds
+        ranks = capped_ranks(*args)
+        capped_rounds.append(doubling.stats.rounds - before)
+        return ranks
+
+    for gen, sentinel in (("a4", "small"), ("a7", "large")):
+        want, _, _ = _block_call("sais", f"4 MiB text block {gen}, bwt_v3 (for comparison)",
+                                 lambda: bwt_v3(arr, sentinel))
+        sais_tpu._capped_ranks = counting
+        try:
+            got, _, launches = _block_call("sais", f"4 MiB text block {gen}, bwt_sais",
+                                           lambda: sais_tpu.bwt_sais(arr, sentinel), calls=1)
+        finally:
+            sais_tpu._capped_ranks = capped_ranks
+        _same_bwt(f"bwt_sais {gen}", got, want)
+        print(f"[sais] {gen}: (L, base) == bwt_v3's; joint-rank rounds of the naming, L and S "
+              f"_capped_ranks: {capped_rounds[-3:]}")
+        out = out or launches
+    return out
+
+
+def phase_it2(text: bytes, stream: dict):
+    """IT-2 on one block, through the container and on Gauntlet blocks;
+    returns the launches of the 64 MiB verify-on run and of one block."""
+    import numpy as np
+    import torch
+
+    import archon_tpu_torch as port
+    from archon_tpu_torch.core import doubling, fast2, it2
+    from archon_tpu_torch.io import blocks
+    from archon_tpu_torch.ops import sort as S
+    from archon_tpu_torch.utils.corpus import gauntlet_cases
+
+    block = 4 * MIB
+    arr = _reversed_block(text[:block])
+    n, D = arr.shape[0], 11
+    M = it2._reduced_capacity(n)
+    block_launches = None
+    for gen, sentinel in (("a4", "small"), ("a7", "large")):
+        want, v3_ms, _ = _block_call("it2", f"4 MiB text block {gen}, bwt_v3 (for comparison)",
+                                     lambda: fast2.bwt_v3(arr, sentinel))
+        (L, base, ok), it2_ms, launches = _block_call(
+            "it2", f"4 MiB text block {gen}, bwt_it2", lambda: it2.bwt_it2(arr, sentinel),
+            calls=1)
+        if not ok:
+            raise AssertionError(f"bwt_it2 {gen}: ok is false on a text block")
+        _same_bwt(f"bwt_it2 {gen}", (L, base), want)
+        print(f"[it2] {gen}: ok, (L, base) == bwt_v3's; bwt_it2 {it2_ms:.3f} ms against bwt_v3 "
+              f"{v3_ms:.3f} ms in this run")
+        block_launches = block_launches or launches
+    prev = torch.roll(arr, 1)
+    (keys, dist, s1, bad_name, overflow), stage1_ms = _timed(
+        lambda: it2._it2_stage1(arr, D, M), calls=1)
+    # _timed calls twice (warm-up, timed): the round counts below are halved
+    doubling.stats.reset()
+    r_star, solve_ms = _timed(lambda: fast2.suffix_ranks_windows(s1, 1, "small"), calls=1)
+    solve_rounds = doubling.stats.rounds // 2
+    merged, merge_ms = _timed(lambda: it2._it2_merge(arr, prev, keys, dist, r_star, D), calls=1)
+    na = int(merged[2])
+    m = int(it2._lucky_mask(arr.to(torch.int32)).sum())
+    # the reduced string is padded with zeros from m to M, one run that ties
+    # as deep as it is long: the same solve without the padding, for the record
+    cut = s1[:m].contiguous()
+    doubling.stats.reset()
+    r_cut, cut_ms = _timed(lambda: fast2.suffix_ranks_windows(cut, 1, "small"), calls=1)
+    cut_rounds = doubling.stats.rounds // 2
+    if not torch.equal(r_cut + (M - m), r_star[:m]):
+        raise AssertionError("the reduced ranks without the zero padding are not the padded ones")
+    print(f"[it2] stages on the a4 block (CUDA events, one call each after a warm-up): naming _it2_stage1 {stage1_ms:.3f} ms, "
+          f"reduced solve suffix_ranks_windows at M={M} {solve_ms:.3f} ms ({solve_rounds} rounds), "
+          f"_it2_merge {merge_ms:.3f} ms; m/n = {m}/{n} = {m / n:.4f}, na = {na}, bad_name "
+          f"{bool(bad_name)}, overflow {bool(overflow)}")
+    print(f"[it2] the reduced solve on the {m} names alone, without the {M - m} zeros of padding "
+          f"(not what the port runs): {cut_ms:.3f} ms ({cut_rounds} rounds), the same ranks")
+
+    mb = len(text) / 1e6
+    _encode_checked("warm-up, a4 8 MiB it2 (not a measurement)", text[: 2 * block], "a4", block,
+                    impl="it2")
+    blocks._streamed_forward.it2_fallbacks = 0
+    S.sort_tiles.launches = S.merge_level.launches = 0
+    dt_on, _ = _encode_checked("a4 64 MiB / 4 MiB blocks", text, "a4", block, impl="it2",
+                               same_as=stream["a4 on"][1])
+    launches = {"sort_tiles": S.sort_tiles.launches, "merge_level": S.merge_level.launches}
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the it2 path never launched: {launches}")
+    dt_off, _ = _encode_checked("a4 64 MiB / 4 MiB blocks", text, "a4", block, verify=False,
+                                impl="it2", same_as=stream["a4 off"][1])
+    fell = blocks._streamed_forward.it2_fallbacks
+    print(f"[it2] a4 64 MiB MB/s, it2 against stream in this run: verify on {mb / dt_on:.2f} / "
+          f"{mb / stream['a4 on'][0]:.2f}, verify off {mb / dt_off:.2f} / "
+          f"{mb / stream['a4 off'][0]:.2f}; kernel launches of the verify-on run {launches}; "
+          f"blocks that fell back to bwt_v3 in both runs: {fell}")
+    if fell:
+        raise AssertionError(f"{fell} text block(s) fell back to bwt_v3")
+
+    cases = gauntlet_cases(MIB)
+    verdicts = []
+    for name in ("zeros", "fibonacci", "nested", "period_long", "random"):
+        g = _reversed_block(cases[name])
+        L, base, ok = it2.bwt_it2(g, "small")
+        if ok:
+            _same_bwt(f"bwt_it2 on Gauntlet {name}", (L, base), fast2.bwt_v3(g, "small"))
+        verdicts.append(f"{name} {'exact' if ok else 'flagged'}")
+    data = b"".join(cases[name] for name in ("zeros", "fibonacci", "nested", "period_long",
+                                              "random"))
+    want = port.encode_file(data, "a4", MIB, impl="stream", device="cuda")
+    blocks._streamed_forward.it2_fallbacks = 0
+    got, dt, _ = _counted("Gauntlet file", lambda: port.encode_file(
+        data, "a4", MIB, impl="it2", device="cuda"))
+    print(f"[it2] Gauntlet blocks of 1 MiB through bwt_it2: {', '.join(verdicts)}; as one file of "
+          f"{len(data)} bytes through impl it2: {blocks._streamed_forward.it2_fallbacks} block(s) "
+          f"fell back to bwt_v3, {dt:.4f} s; == stream container: {got == want}")
+    if got != want or port.decode_file(got) != data:
+        raise AssertionError("the Gauntlet container of impl it2 differs from the stream's")
+    if not blocks._streamed_forward.it2_fallbacks:
+        raise AssertionError("no Gauntlet block took the bwt_v3 fallback")
+    return launches, block_launches
+
+
+def phase_cli(text: bytes) -> None:
+    """``python -m archon_tpu_torch e --impl it2 --profile-dir`` and ``d`` in
+    subprocesses on a 16 MiB file."""
+    import shutil
+
+    from archon_tpu_torch.ops._build import BUILD_DIR
+
+    work = BUILD_DIR / "chip_smoke_cli"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        src, out, back, prof = work / "in", work / "out.ata", work / "back", work / "prof"
+        src.write_bytes(text[: 16 * MIB])
+        cmd = [sys.executable, "-m", "archon_tpu_torch"]
+        t0 = time.perf_counter()
+        enc = subprocess.run([*cmd, "--profile-dir", str(prof), "e", str(src), str(out),
+                              "--impl", "it2"], cwd=ROOT, capture_output=True, text=True,
+                             timeout=600)
+        enc_dt = time.perf_counter() - t0
+        if enc.returncode != 0:
+            raise AssertionError(f"the command line's encode failed: {enc.stderr[-2000:]}")
+        report = [ln for ln in enc.stdout.splitlines() if ln.strip()]
+        heads = [ln.split(":")[0] for ln in report[-5:]]
+        if heads != ["Read time", "Transform time", "Write time", "Total time", "Linear coef"]:
+            raise AssertionError(f"the command line printed no stage report: {report[-6:]}")
+        traces = [p for p in prof.iterdir() if p.stat().st_size > 0] if prof.is_dir() else []
+        if not traces:
+            raise AssertionError("--profile-dir left no trace file")
+        dec = subprocess.run([*cmd, "d", str(out), str(back)], cwd=ROOT, capture_output=True,
+                             text=True, timeout=600)
+        if dec.returncode != 0 or back.read_bytes() != text[: 16 * MIB]:
+            raise AssertionError(f"the command line's decode failed: {dec.stderr[-2000:]}")
+        print(f"[cli] e --impl it2 --profile-dir on {16 * MIB} bytes: {enc_dt:.2f} s for the "
+              f"process; report: {' | '.join(report[-5:])}; trace {traces[0].name} "
+              f"{traces[0].stat().st_size} bytes; d gives the input back")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_memory(text: bytes) -> None:
+    """``memory_report`` beside the measured peak of one ``bwt_v3``."""
+    import torch
+
+    from archon_tpu_torch.core.fast2 import bwt_v3
+    from archon_tpu_torch.utils.tools import memory_report
+
+    arr = _reversed_block(text[: 4 * MIB])
+    n = arr.shape[0]
+    bwt_v3(arr, "small")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    bwt_v3(arr, "small")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held + n  # the input is part of the report
+    rep = memory_report(n, "v3")
+    print(f"[memory] bwt_v3 at n={n}: memory_report {rep['bytes_per_input_byte']:.0f} B per input "
+          f"byte = {rep['total_bytes'] / MIB:.1f} MiB; measured peak above what was held before "
+          f"the call, plus the input: {peak / MIB:.1f} MiB = {peak / n:.1f} B per input byte "
+          f"(torch.cuda.max_memory_allocated)")
+    if not 0.85 < peak / rep["total_bytes"] < 1.15:
+        raise AssertionError("memory_report is off the measured peak by more than 15%")
+
+
 def main() -> int:
     if not (ROOT / "archon_tpu_torch").is_dir():
         print("chip_smoke: run from a checkout of the repository (package not found)",
@@ -873,21 +1265,34 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import torch
 
+    def timed_phase(phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        print(f"[time] {phase.__name__}: {time.perf_counter() - t0:.1f} s")
+        return out
+
     phase_card()
-    phase_build()
-    stats = phase_kernels()
-    launches, text, stream = phase_main()
-    phase_a6(text[: 16 * MIB])
-    phase_inverse(text[: 16 * MIB])
-    phase_breakdown(text[: 4 * MIB])
-    phase_sort_rows()
-    batched_launches = phase_batched(text, stream)
-    phase_resume(text, stream)
+    timed_phase(phase_build)
+    stats = timed_phase(phase_kernels)
+    launches, text, stream = timed_phase(phase_main)
+    timed_phase(phase_a6, text[: 16 * MIB])
+    timed_phase(phase_inverse, text[: 16 * MIB])
+    timed_phase(phase_breakdown, text[: 4 * MIB])
+    timed_phase(phase_sort_rows)
+    batched_launches = timed_phase(phase_batched, text, stream)
+    timed_phase(phase_resume, text, stream)
+    fast_block = timed_phase(phase_v1, text)
+    sais_block = timed_phase(phase_sais, text)
+    it2_launches, it2_block = timed_phase(phase_it2, text, stream)
+    timed_phase(phase_cli, text)
+    timed_phase(phase_memory, text)
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-         "launches": launches[name] + batched_launches[name],
+         "launches": launches[name] + batched_launches[name] + it2_launches[name],
          "launches_stream": launches[name], "launches_batched": batched_launches[name],
-         **stats[name]}
+         "launches_it2": it2_launches[name], "launches_it2_block": it2_block[name],
+         "launches_sais_block": sais_block[name], "launches_fast_block": fast_block[name],
+         "max_abs_err": KERNEL_ERR[name], **stats[name]}
         for name in ("sort_tiles", "merge_level")
     ]
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,5 @@
-"""CUDA kernels, the forward BWT, a6 and the device inverse on the card
-(marker ``cuda``).
+"""CUDA kernels, the forward BWT (v3, v1, IT-2, SA-IS), a6 and the device
+inverse on the card (marker ``cuda``).
 
 A CUDA kernel has no CPU mode, so these skip without a card.  The file
 imports no JAX, so on a GPU machine without JAX it runs alone:
@@ -172,3 +172,86 @@ def test_certificate_on_card_rejects_corruption(cuda_device):
     assert batched.verify_bwt_batched(data2, rank, bad, base, "large").tolist() == [
         True, True, False, True]
     assert batched.verify_bwt_batched(data2, rank, L, base + 1, "large").tolist() == [False] * 4
+
+
+def _text_block(n, device):
+    return torch.from_numpy(np.frombuffer(text_like(n, 9), np.uint8).copy()).to(device)
+
+
+@pytest.mark.parametrize("shape", ["it2_stage1", "it2_merge", "sais_joint_rank", "it2_reduced"])
+def test_kernels_match_twins_at_it2_and_sais_shapes(cuda_device, shape):
+    """The sorts the IT-2 and SA-IS paths add, with the keys a 4 MiB text
+    block gives them: 5 keys + index with 2 payloads at 2^22 (a fifth key
+    past the carried four, first and last in significance), 2 keys + index
+    at 2^23 + 2, 1 key + 1 payload at 2^21."""
+    from archon_tpu_torch.core import it2, sais_tpu
+
+    n = 1 << 22
+    data = _text_block(n, cuda_device)
+    iota = torch.arange(n, dtype=torch.int32, device=cuda_device)
+    if shape == "sais_joint_rank":
+        d = data.to(torch.int32)
+        t = sais_tpu._types(d)
+        u = torch.cat([d * 2 + t[:n].to(torch.int32) + 2, d.new_ones(1)])
+        lms = torch.cat([t.new_zeros(1), t[1:] & ~t[:-1]])
+        keys = [torch.cat([u, u]), torch.cat([torch.zeros_like(u),
+                                          torch.where(lms, 1, 0x3FFFFFFF).to(torch.int32)])]
+        payloads = [torch.arange(2 * n + 2, dtype=torch.int32, device=cuda_device)]
+        assert keys[0].shape[0] == (1 << 23) + 2
+    else:
+        M = it2._reduced_capacity(n)
+        assert M == 1 << 21
+        pkeys, dist, s1, bad, overflow = it2._it2_stage1(data, 11, M)
+        assert len(pkeys) == 4 and not bool(bad) and not bool(overflow)
+        if shape == "it2_stage1":
+            lucky = it2._lucky_mask(data.to(torch.int32))
+            keys, payloads = [torch.where(lucky, 0, 1).to(torch.int32), *pkeys], [iota, dist]
+        elif shape == "it2_merge":
+            r_star = fast2.suffix_ranks_windows(s1, 1, "small")
+            c = torch.cumsum(it2._lucky_mask(data.to(torch.int32)), 0).to(torch.int32)
+            refkey = torch.where(dist <= 11, torch.where(c < c[-1], r_star[c.clamp(max=M - 1)], -1),
+                                 0x7FFFFFFF)
+            keys, payloads = [*pkeys, refkey], [iota, torch.roll(data, 1)]
+        else:
+            keys, payloads = [s1], [torch.arange(M, dtype=torch.int32, device=cuda_device)]
+    _hold_kernels_to_twins([k.contiguous() for k in keys], payloads)
+
+
+@pytest.mark.parametrize("sentinel", ["small", "large"])
+def test_v1_it2_sais_on_card_match_cpu(cuda_device, sentinel):
+    """``suffix_array_fast``, ``bwt_sais`` and ``bwt_it2`` at 2^20 on the card
+    against the same functions on CPU tensors (the plain twins), and
+    against ``bwt_v3`` on the card."""
+    from archon_tpu_torch.core import fast, it2, sais_tpu
+
+    n = 1 << 20
+    cpu = _text_block(n, "cpu")
+    dev = cpu.to(cuda_device)
+    launches = tsort.sort_tiles.launches
+    sa = fast.suffix_array_fast(dev, sentinel, return_device=True)
+    assert sa.device.type == "cuda"
+    assert np.array_equal(sa.cpu().numpy(), fast.suffix_array_fast(cpu, sentinel))
+    Lw, bw = fast2.bwt_v3(dev, sentinel)
+    L, base = sais_tpu.bwt_sais(dev, sentinel)
+    Lc, basec = sais_tpu.bwt_sais(cpu, sentinel)
+    assert torch.equal(L.cpu(), Lc) and base == basec
+    assert torch.equal(L, Lw) and base == bw
+    L, base, ok = it2.bwt_it2(dev, sentinel)
+    Lc, basec, okc = it2.bwt_it2(cpu, sentinel)
+    assert ok and okc and torch.equal(L.cpu(), Lc) and base == basec
+    assert torch.equal(L, Lw) and base == bw
+    assert tsort.sort_tiles.launches > launches + 20
+
+
+def test_it2_container_on_card_matches_stream(cuda_device):
+    """``impl="it2"`` on the card: text blocks through IT-2, a zero run
+    through the counted ``bwt_v3`` fallback, the stream's bytes either way."""
+    from archon_tpu_torch.io import blocks
+
+    n = 1 << 17
+    data = text_like(2 * n, 3) + bytes(n) + text_like(n + 777, 4)
+    blocks._streamed_forward.it2_fallbacks = 0
+    got = blocks.encode_file(data, "a7", n, impl="it2", device=cuda_device)
+    assert blocks._streamed_forward.it2_fallbacks == 1
+    assert got == blocks.encode_file(data, "a7", n, impl="stream", device=cuda_device)
+    assert blocks.decode_file(got) == data

@@ -15,8 +15,20 @@ copies, under the JAX package's names.
 
 There are no weights and no learned state to carry between the packages:
 both take the same input bytes and the same configuration (generation
-a4/a7, block size, pack, impl in micro, v3, stream, it2), and ``config.ArchonConfig`` has the JAX
-package's fields, so no converter exists or is needed.
+a4/a7, block size, pack, impl in micro, v3, stream, it2, dp, sp), and
+``config.ArchonConfig`` has the JAX package's fields, so no converter exists
+or is needed.  What is carried across is the format: every ATA1, ATA2 and
+ATM1 blob either package writes, the other reads.
+
+Several devices: ``parallel.blocks.make_mesh(axes, devices)`` builds the
+port's own small ``Mesh`` (a device may stand in it more than once).
+``encode_file(dp=N)`` splits each batch of blocks over a ``dp`` mesh;
+``parallel.megapipe.encode_megablock(data, mesh, generation, coder)`` sorts
+the input as ONE block across the shards of an ``sp`` mesh (distributed
+prefix doubling, ``parallel.megablock``) and writes the ``ATM1`` container,
+which ``decode_megablock`` reads on the host.  Shards on one device run in
+process, as the rows of one tensor; a mesh made with a ``torch.distributed``
+process group runs one rank a device (``parallel.collectives``).
 
 Top-level API (lazily imported).  Every function that runs on a device
 takes ``device``, default ``"cuda"``, and raises when that device is
@@ -29,9 +41,12 @@ unavailable; ``decode`` walks on the host unless given a device, and
     encode_to_path(data, path, ..., resume, flush_blocks, verify, impl, pack, device=...)
     decode_file(blob, strict, on_error)
     ArchonConfig                              # the configuration dataclass
+    __version__                               # the JAX package's
 """
 
 from __future__ import annotations
+
+__version__ = "0.4.0"
 
 _LAZY = {
     "encode": ("archon_tpu_torch.formats", "encode"),
@@ -44,7 +59,7 @@ _LAZY = {
     "ArchonConfig": ("archon_tpu_torch.config", "ArchonConfig"),
 }
 
-__all__ = sorted(_LAZY)
+__all__ = sorted(_LAZY) + ["__version__"]
 
 
 def __getattr__(name: str):

@@ -12,13 +12,23 @@
   python -m archon_tpu_torch e|d <in> <out> [-g a4|a7] [-b BLOCK] [--pack]
                                 [--impl micro|v3|stream|it2] [--resume]
                                 [--no-verify] [--dp N] [--sp N] [--device D]
-                                        # block-streamed ATA1/ATA2 container
+                                        # block-streamed ATA1/ATA2 container,
+                                        # or with --sp one sharded megablock (ATM1);
+                                        # d reads all three
 
 Every command prints the a4/a5-style stage report (Read / Transform / Write /
 Total time and the "Linear coef" in ms/MB).  ``--profile-dir`` (or
 ``ARCHON_PROFILE_DIR``) writes a ``torch.profiler`` trace of the transform
-stage there.  ``--dp`` and ``--sp`` above 1 need several devices and raise
-until the multi-device slice is ported.
+stage there.
+
+``--dp N`` splits each batch of blocks over N devices: with ``--device cuda``
+the first N cards (it raises, naming the count, where there are fewer), with
+``--device cpu`` N entries of the CPU.  ``--sp N`` encodes the input as ONE
+megablock in N shards (``parallel.megapipe``, coder ``var``); N goes into the
+``ATM1`` header and the bytes depend on it, not on the devices: with a card
+for every shard each shard runs in a process of its own on its card
+(``torch.distributed``, NCCL), otherwise all N shards lie on the one device
+asked for, and a printed line says which it was.
 """
 
 from __future__ import annotations
@@ -50,6 +60,26 @@ def _rw_timed(args, fn, profile_dir=None):
             f.write(out)
     print(f"{len(data)} -> {len(out)} bytes")
     timer.report()
+
+
+def _encode_sharded(data: bytes, sp: int, generation: str, device) -> bytes:
+    """``e --sp N``: ``data`` as one ATM1 megablock of ``sp`` shards.  With a
+    CUDA card for every shard, one process a card (NCCL); otherwise every
+    shard on ``device``.  Prints how the shards were laid out."""
+    import torch
+
+    from .io.blocks import as_device
+    from .parallel import megapipe
+    from .parallel.blocks import make_mesh
+    from .parallel.collectives import spawn
+
+    dev = as_device(device)
+    if dev.type == "cuda" and dev.index is None and torch.cuda.device_count() >= sp:
+        print(f"{sp} shards on {sp} devices (one process a card)")
+        return spawn(megapipe._encode_on_rank, sp, "nccl", data, "cuda", generation, "var")
+    print(f"{sp} shards on 1 device ({dev})")
+    mesh = make_mesh({"sp": sp}, devices=[dev] * sp)
+    return megapipe.encode_megablock(data, mesh, generation)
 
 
 def _parser():
@@ -155,14 +185,10 @@ def main(argv=None) -> int:
     elif args.cmd == "e":
         from .io import blocks
 
-        blocks._check_args(cfg.generation, cfg.block_size, cfg.dp)
+        blocks._check_args(cfg.generation, cfg.block_size)
         if cfg.sp > 1:
-            raise ValueError(
-                "sp > 1 encodes one megablock sharded over several devices "
-                "(parallel.megapipe), which the port does not have yet: it comes with the "
-                "multi-device slice"
-            )
-        if cfg.resume:
+            _rw(args, lambda d: _encode_sharded(d, cfg.sp, cfg.generation, args.device))
+        elif cfg.resume:
             # complete frames already in OUTFILE are kept, a trailing partial
             # frame is truncated, and only the missing blocks are recomputed
             with open(args.infile, "rb") as f:
@@ -182,8 +208,14 @@ def main(argv=None) -> int:
             ))
     else:
         from .io import blocks
+        from .parallel import megapipe
 
-        _rw(args, blocks.decode_file)
+        def _decode_any(d):
+            if d[:4] == megapipe.MAGIC:  # sharded megablock container
+                return megapipe.decode_megablock(d)
+            return blocks.decode_file(d)
+
+        _rw(args, _decode_any)
     return 0
 
 

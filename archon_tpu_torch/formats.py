@@ -13,26 +13,29 @@ import torch
 
 from . import native
 from .core.doubling import SENT_LARGE, SENT_SMALL
-from .io.blocks import _inverse, as_device
+from .io.blocks import _inverse, as_byte_tensor, as_device
 
 _CONVENTION = {"a4": SENT_SMALL, "a7": SENT_LARGE}
 
 
 def encode(data: bytes, generation: str = "a4", verify: bool = True, device="cuda") -> bytes:
     """``data`` as an a4/a7 blob, byte-identical with
-    ``archon_tpu.formats.encode``.  ``verify=True`` round-trips the result
-    through the host LF walk and raises if it does not give ``data`` back."""
+    ``archon_tpu.formats.encode``.  Runs the batched v3 sorter on a single
+    row; ``verify=True`` takes the certified variant, whose LF certificate
+    runs on the device, and raises if the certificate fails."""
     sentinel = _CONVENTION[generation]
     if not data:
         return np.uint32(0).tobytes()
-    from .core.fast2 import bwt_v3
+    from .core.batched import bwt_batched_v3, bwt_batched_v3_certified
 
-    arr = torch.from_numpy(np.frombuffer(data[::-1], np.uint8).copy()).to(as_device(device))
-    L, base = bwt_v3(arr, sentinel)
-    L = L.cpu().numpy()
-    if verify and _inverse(L, base, sentinel, native.available()).tobytes() != data:
-        raise AssertionError("BWT verification failed (internal error)")
-    return L.tobytes() + np.uint32(base).tobytes()
+    arr = as_byte_tensor(data, device).flip(0).reshape(1, -1)
+    if verify:
+        L, base, ok = bwt_batched_v3_certified(arr, sentinel)
+        if not bool(ok[0]):
+            raise AssertionError("BWT verification failed (internal error)")
+    else:
+        L, base = bwt_batched_v3(arr, sentinel)
+    return L[0].cpu().numpy().tobytes() + np.uint32(int(base[0])).tobytes()
 
 
 def decode(blob: bytes, generation: str = "a4", device=None) -> bytes:

@@ -17,9 +17,13 @@ written as one frame; ``pack=True`` entropy-packs each L on the host
 - ``it2``: block by block through ``core.it2.bwt_it2_async``, a block it
   flags recomputed by ``bwt_v3``.
 
-All four write the same bytes.  ``encode_to_path`` appends frames to a file
-and can resume an interrupted encode; ``extract_block`` cuts one block out
-as a single-block a4/a7 blob.  Decode is the native LF walk.
+All four write the same bytes.  ``dp > 1`` splits each batch of ``micro`` and
+``v3`` over a ``dp`` device mesh (``parallel.blocks.make_mesh``); the stream
+ignores it.  ``encode_to_path`` appends frames to a file and can resume an
+interrupted encode; ``extract_block`` cuts one block out as a single-block
+a4/a7 blob.  Decode is the native LF walk.  The sharded megablock container
+(``ATM1``) is ``parallel.megapipe``'s: ``decode_file`` and ``extract_block``
+name it and point there.
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ __all__ = ["encode_file", "encode_to_path", "decode_file", "extract_block", "as_
 
 MAGIC = b"ATA1"
 MAGIC_PACKED = b"ATA2"  # per-block MTF+RLE0+Huffman payloads (entropy/pack)
-MAGIC_MEGABLOCK = b"ATM1"  # the sharded megablock container of the JAX package
+MAGIC_MEGABLOCK = b"ATM1"  # the sharded megablock container (parallel.megapipe)
 GENERATIONS = {"a4": 0, "a7": 1}
 DEFAULT_BLOCK = 1 << 22  # 4 MiB, the x1 historical default (ArchonX1.c:19)
 FLAG_PACKED = 1
@@ -201,7 +205,7 @@ _fallback_row.calls = 0  # rows recomputed since import (or since a caller set i
 
 
 def _batched_forward(blocks: list[bytes], generation: str, verify: bool = True,
-                     impl: str = "micro", device="cuda") -> list:
+                     impl: str = "micro", device="cuda", mesh=None) -> list:
     """Transform blocks, batching equal-length runs: [(L, base), ...].
 
     ``verify=True`` (default) runs the per-block LF certificate on the
@@ -212,6 +216,8 @@ def _batched_forward(blocks: list[bytes], generation: str, verify: bool = True,
     (``impl="micro"``, ``core.batched.bwt_batched_micro*``): rows it reports
     unresolved are recomputed through the 1-D cascade pipeline.
     ``impl="v3"`` selects the variant with the cascade inside (no fallback).
+    ``mesh`` dp-shards each unit over its devices (the unit's rows are laid
+    on ``device`` first; ``parallel.blocks`` moves each chunk to its own).
 
     Equal-length runs are cut into dispatch units of ``PIPE_BLOCKS`` rows;
     unit i+1 is enqueued before unit i's payload is copied back."""
@@ -231,6 +237,9 @@ def _batched_forward(blocks: list[bytes], generation: str, verify: bool = True,
     dev = as_device(device)
     sentinel = SENT_SMALL if generation == "a4" else SENT_LARGE
     pipe = _pipe_blocks(len(blocks))
+    if mesh is not None:
+        # a dispatch unit must stay shardable over the dp mesh
+        pipe = -(-pipe // mesh.size) * mesh.size
 
     # split into dispatch units: equal-length runs, chunked to `pipe` rows
     units = []  # (first_index, [block bytes...]); empty blocks pass through
@@ -253,16 +262,18 @@ def _batched_forward(blocks: list[bytes], generation: str, verify: bool = True,
             return ()
         data2 = _reversed_on(dev, blks)
         ones = torch.ones(len(blks), dtype=torch.bool)
+        # a ragged tail batch (rows the mesh does not divide) runs unsharded
+        m = mesh if mesh is not None and len(blks) % mesh.size == 0 else None
         if impl == "v3":
             if verify:
-                L, base, ok = bwt_blocks_certified(data2, sentinel)
+                L, base, ok = bwt_blocks_certified(data2, sentinel, mesh=m)
             else:
-                (L, base), ok = bwt_blocks(data2, sentinel), ones
+                (L, base), ok = bwt_blocks(data2, sentinel, mesh=m), ones
             resolved = ones
         elif verify:
-            L, base, ok, resolved = bwt_blocks_micro_certified(data2, sentinel)
+            L, base, ok, resolved = bwt_blocks_micro_certified(data2, sentinel, mesh=m)
         else:
-            L, base, resolved = bwt_blocks_micro(data2, sentinel)
+            L, base, resolved = bwt_blocks_micro(data2, sentinel, mesh=m)
             ok = resolved
         return first, blks, L, base, ok, resolved
 
@@ -322,24 +333,35 @@ def _frames(blocks, results, pack: bool):
             yield struct.pack("<I", len(blk)), np.ascontiguousarray(L).data, struct.pack("<I", base)
 
 
-def _check_args(generation: str, block_size: int, dp: int) -> None:
+def _check_args(generation: str, block_size: int) -> None:
     if generation not in GENERATIONS:
         raise ValueError(f"unknown generation {generation!r}")
     if block_size < 1:
         raise ValueError("block_size must be positive")
-    if dp > 1:
-        raise ValueError(
-            "dp > 1 needs a device mesh (parallel.blocks.make_mesh), which the port does not "
-            "have yet: it comes with the multi-device slice"
-        )
+
+
+def _dp_mesh(dp: int, device):
+    """The ``dp`` mesh of ``encode_file``: None for ``dp <= 1``; the first
+    ``dp`` cards for a CUDA device (raises, naming the count, where there are
+    fewer); ``dp`` entries of any other device (the CPU takes any ``dp``)."""
+    if dp <= 1:
+        return None
+    from ..parallel.blocks import make_mesh
+
+    dev = as_device(device)
+    if dev.type != "cuda":
+        return make_mesh({"dp": dp}, devices=[dev] * dp)
+    cards = torch.cuda.device_count()
+    if cards < dp:
+        raise RuntimeError(f"dp={dp} needs {dp} CUDA devices, this machine has {cards}")
+    return make_mesh({"dp": dp}, devices=[torch.device("cuda", i) for i in range(dp)])
 
 
 def _reject_megablock(blob: bytes) -> None:
     if blob[:4] == MAGIC_MEGABLOCK:
         raise ValueError(
-            "an ATM1 container is one megablock sharded over several devices "
-            "(parallel.megapipe), which the port does not have yet: it comes with the "
-            "multi-device slice"
+            "bad magic: an ATM1 container is one sharded megablock, not a block stream; "
+            "parallel.megapipe.decode_megablock reads it (as does the command line's d)"
         )
 
 
@@ -364,10 +386,13 @@ def encode_file(
     with its ``bwt_v3`` fallback; all write the same bytes).  ``verify`` is
     the device LF certificate for micro and v3 and the host round trip for
     stream and it2.  ``pack=True`` writes the compressing ATA2 container
-    (MTF+RLE0+Huffman payloads).  ``dp > 1`` (a device mesh) is not ported."""
-    _check_args(generation, block_size, dp)
+    (MTF+RLE0+Huffman payloads).  ``dp > 1`` shards the block batch of micro
+    and v3 over a dp-axis device mesh (``_dp_mesh``; stream and it2 ignore it,
+    their blocks pipeline through one device's queue)."""
+    _check_args(generation, block_size)
+    mesh = _dp_mesh(dp, device)
     blocks = _split(data, block_size)
-    results = _batched_forward(blocks, generation, verify, impl, device)
+    results = _batched_forward(blocks, generation, verify, impl, device, mesh)
     pieces = [_header(generation, block_size, pack)]
     for frame in _frames(blocks, results, pack):
         pieces += frame
@@ -477,7 +502,7 @@ def encode_to_path(
     frame is truncated away, and encoding continues from the first missing
     block; an output whose kind, header or last kept frame disagrees with
     the input is written anew.  Returns the number of blocks (re)computed."""
-    _check_args(generation, block_size, 1)
+    _check_args(generation, block_size)
     blocks = _split(data, block_size)
     done = 0
     state = (
@@ -514,7 +539,8 @@ def encode_to_path(
 
 
 def decode_file(blob: bytes, strict: bool = True, on_error=None) -> bytes:
-    """Invert an ATA1/ATA2 container on the host.  ``strict=False`` isolates
+    """Invert an ATA1/ATA2 container on the host (an ``ATM1`` blob raises
+    "bad magic", naming ``parallel.megapipe``).  ``strict=False`` isolates
     faults per block: a corrupt block (bad base, bad packed payload, or an
     LF walk that is not one cycle) decodes to zero bytes and is reported
     through ``on_error(block_index, exception)``."""
@@ -562,7 +588,7 @@ def decode_file(blob: bytes, strict: bool = True, on_error=None) -> bytes:
                 on_error(idx, e)
             return b"\x00" * n
 
-    if len(parsed) > 1:
+    if use_native and len(parsed) > 1:
         # the native walk releases the GIL: blocks decode on all cores
         with ThreadPoolExecutor(max_workers=min(len(parsed), os.cpu_count() or 1)) as ex:
             return b"".join(ex.map(decode_one, parsed))

@@ -38,6 +38,8 @@ or run pair; ``sort_operands_ref`` and ``sort_rows_ref``: stable passes from
 the last key to the first, then gathers).  A wrapper takes its twin only for
 tensors on the CPU; on a CUDA tensor it launches its kernel or raises.  To
 inspect a path without the kernels, give it CPU tensors or call the twins.
+``merge_rows`` is the one-level form for rows that are two sorted runs each
+(the megablock's merge-split stages): K2 alone, once.
 ``sort_tiles.launches`` and ``merge_level.launches`` count kernel launches.
 """
 
@@ -313,4 +315,48 @@ def _sort_rows_kernels(keys: list, payloads: list) -> list:
     rows = torch.arange(B, dtype=torch.int32, device=dev)[:, None]
     perm = tuples[C, :, :n] - rows * (W - n)
     return ([tuples[c, :, :n] for c in range(C)] + [k.reshape(-1)[perm] for k in keys[C:]]
+            + [p.reshape(-1)[perm] for p in payloads])
+
+
+def merge_rows(keys, payloads=()) -> list:
+    """``sort_rows`` for (B, 2 * run) operands whose rows are each two runs
+    already sorted by ``keys``: the same result (a merge of sorted runs by
+    (keys..., index) is the stable sort of the row) by ONE K2 level for all
+    rows and no K1.  The sharded megablock's merge-split stages are this
+    shape: ``[mine, partner]``, both sorted.  On CUDA the row width must be a
+    multiple of ``MERGE_TILE``; rows that are not two sorted runs come out
+    unsorted, unchecked."""
+    keys, payloads = list(keys), list(payloads)
+    if not keys:
+        raise ValueError("merge_rows needs at least one key")
+    shape, dev = keys[0].shape, keys[0].device
+    for t in keys + payloads:
+        if t.dim() != 2 or t.shape != shape or t.device != dev:
+            raise ValueError("operands must be 2-D, of one shape, on one device")
+    for k in keys:
+        if k.dtype != torch.int32:
+            raise TypeError(f"keys must be int32, got {k.dtype}")
+    if shape[1] % 2:
+        raise ValueError("merge_rows: a row is two runs of one length")
+    if dev.type == "cpu":
+        return sort_rows_ref(keys, payloads)
+    if shape[0] == 0 or shape[1] == 0:
+        return keys + payloads
+    return _merge_rows_kernels(keys, payloads)
+
+
+def _merge_rows_kernels(keys: list, payloads: list) -> list:
+    """``merge_rows`` through K2 (on CPU tensors, through its twin: the tests
+    hold the layout that way)."""
+    (B, w), dev = keys[0].shape, keys[0].device
+    if w % MERGE_TILE:
+        raise ValueError(f"merge_rows: the row width must be a multiple of {MERGE_TILE}")
+    if B * w >= MAX_WIDTH:
+        raise ValueError("merge_rows: the batch's width must be below 2^30")
+    mat = torch.stack(keys).view(len(keys), B * w)
+    C = carried(len(keys))
+    index = torch.arange(B * w, dtype=torch.int32, device=dev)
+    tuples = merge_level(mat, torch.cat([mat[:C], index[None]]), w // 2).view(-1, B, w)
+    perm = tuples[C]  # rows lie end to end unpadded: buffer index == operand index
+    return ([tuples[c] for c in range(C)] + [k.reshape(-1)[perm] for k in keys[C:]]
             + [p.reshape(-1)[perm] for p in payloads])

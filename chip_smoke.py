@@ -62,15 +62,31 @@ Phases, each printing its own lines; any failure exits non-zero:
     (verify on and off) byte-identical with the stream's, its blocks that
     fell back to ``bwt_v3`` counted, and Gauntlet blocks through
     ``impl="it2"`` (flagged or exact, the stream's container either way);
-14. the command line in a subprocess: ``e --impl it2 --profile-dir`` on a
-    16 MiB file (stage report, a trace file), ``d`` back to the input;
-15. ``utils.tools.memory_report`` beside the measured peak of ``bwt_v3``;
-16. one JSON line describing the kernels, then the device line last.
+14. the sharded megablock (``parallel/megablock``, ``parallel/megapipe``) as
+    8 shards in process on the one card: every shape of sort it launches on
+    a 4 MiB text block (``sort_rows`` at (8, S) and the merge-split stages'
+    ``merge_rows`` at (8, 2S); 5, 2 and 1 keys) held to its twins (K1, every
+    K2 level, the whole sort; a stage as one merge level against the same
+    stage re-sorted) and timed beside the stable ``torch.sort`` chain;
+    ``bwt_megablock`` of that block equal to ``bwt_v3``, and of 2^20 zeros
+    and fibonacci; then 64 MiB as ONE megablock: init, each round, emit,
+    hist and pack timed apart (device ms by CUDA events, and the host's
+    enqueue ms), the whole ``encode_megablock`` with its launches, rounds,
+    host reads and peak memory, ``decode_megablock`` back to the input, the
+    ``ATM1`` size beside the ATA2 container's, and its sort shapes held to
+    their twins;
+15. ``unbwt_blocks`` on (8, 4 MiB), all rows in one lockstep walk, against
+    the row loop; ``formats.encode`` with the device certificate on and off;
+16. the command line in subprocesses: ``e --impl it2 --profile-dir`` on a
+    16 MiB file (stage report, a trace file), ``d`` back to the input; then
+    ``e --sp 8`` (an ``ATM1`` file) and ``d`` of it;
+17. ``utils.tools.memory_report`` beside the measured peak of ``bwt_v3``;
+18. one JSON line describing the kernels, then the device line last.
 
 Phases 5 and 6 zero the kernel launch counts before each encode or device
 decode and fail unless both kernels launched in it; so do the 64 MiB runs of
 the stream, the batched path and ``impl="it2"``, whose counts the JSON line
-reports, and every call of phases 11 to 13.
+reports, every call of phases 11 to 13, and the 64 MiB megablock of phase 14.
 
 The script uses the port's own API only; its test data and its BWT
 reference are made here, from fixed seeds.
@@ -1193,9 +1209,290 @@ def phase_it2(text: bytes, stream: dict):
     return launches, block_launches
 
 
+def _hold_rows_sort(name, keys, payloads, levels=True):
+    """A ``sort_rows`` call of the megablock against its twins: with
+    ``levels``, K1 and every K2 level up to the row width on the batch's
+    flat key matrix (the rows fill their width, so it is the operands laid
+    end to end), then the whole ``sort_rows``."""
+    import torch
+
+    from archon_tpu_torch.ops import sort as S
+
+    B, n = keys[0].shape
+    if S.row_width(B, n) != n:
+        raise AssertionError(f"{name}: rows of {n} do not fill their row width")
+    if levels:
+        mat = torch.stack([k.contiguous() for k in keys]).view(len(keys), B * n)
+        tuples = S.sort_tiles(mat)
+        e1 = _max_err(tuples, S.sort_tiles_ref(mat))
+        run, e2 = S.TILE, 0
+        while run < n:
+            nxt = S.merge_level(mat, tuples, run)
+            e2 = max(e2, _max_err(nxt, S.merge_level_ref(mat, tuples, run)))
+            tuples, run = nxt, run * 2
+        KERNEL_ERR["sort_tiles"] = max(KERNEL_ERR["sort_tiles"], e1)
+        KERNEL_ERR["merge_level"] = max(KERNEL_ERR["merge_level"], e2)
+        print(f"[megablock] {name}: K1 tile_err={e1}, K2 levels up to the row merge_err={e2}")
+        if e1 or e2:
+            raise AssertionError(f"kernel disagrees with its plain twin: {name}")
+    check_sort_rows(name, keys, payloads, "megablock")
+
+
+def _hold_stage_merge(name, keys, payloads, level=True):
+    """A merge-split stage of the megablock (``merge_rows``: rows of two
+    sorted runs, one K2 level) against K2's twin on the same tuples, against
+    the same stage re-sorted by ``sort_rows`` (bit for bit) and against
+    ``sort_rows_ref``; one K2 launch and no K1."""
+    import torch
+
+    from archon_tpu_torch.ops import sort as S
+
+    B, w = keys[0].shape
+    e2 = 0
+    if level:
+        mat = torch.stack([k.contiguous() for k in keys]).view(len(keys), B * w)
+        C = S.carried(len(keys))
+        index = torch.arange(B * w, dtype=torch.int32, device=mat.device)
+        tuples = torch.cat([mat[:C], index[None]])
+        e2 = _max_err(S.merge_level(mat, tuples, w // 2), S.merge_level_ref(mat, tuples, w // 2))
+    S.sort_tiles.launches = S.merge_level.launches = 0
+    got = S.merge_rows(keys, payloads)
+    k1, k2 = S.sort_tiles.launches, S.merge_level.launches
+    resorted = S.sort_rows(keys, payloads)
+    want = S.sort_rows_ref(keys, payloads)
+    e3 = max(_max_err(g, x) for g, x in zip(got, want))
+    e4 = max(_max_err(g, x) for g, x in zip(got, resorted))
+    torch.cuda.synchronize()
+    KERNEL_ERR["merge_level"] = max(KERNEL_ERR["merge_level"], e2, e3, e4)
+    print(f"[megablock] {name}: ({B}, {w}) keys={len(keys)} payloads={len(payloads)} one merge "
+          f"level at run {w // 2}: launches K1 {k1}, K2 {k2}; against K2's twin {e2}, against "
+          f"sort_rows_ref {e3}, against the stage re-sorted by sort_rows {e4}")
+    if e2 or e3 or e4 or (k1, k2) != (0, 1):
+        raise AssertionError(f"the one-level stage disagrees or launched otherwise: {name}")
+
+
+def _device_and_enqueue_ms(fn):
+    """``fn()`` once: (result, device ms by CUDA events, the host's ms to
+    enqueue it).  A host read inside ``fn`` shows in both."""
+    import torch
+
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    stop.record()
+    enqueue = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop), enqueue
+
+
+def phase_megablock(text: bytes):
+    """The sharded megablock, 8 shards in process on the card; returns the
+    launches of the 64 MiB ``encode_megablock`` and the kernels' ms and
+    bounds at its shapes."""
+    import numpy as np
+    import torch
+
+    import archon_tpu_torch as port
+    from archon_tpu_torch.core.fast2 import bwt_v3
+    from archon_tpu_torch.ops import sort as S
+    from archon_tpu_torch.parallel import megablock as mb
+    from archon_tpu_torch.parallel import megapipe
+    from archon_tpu_torch.parallel.blocks import make_mesh
+    from archon_tpu_torch.parallel.collectives import collectives
+    from archon_tpu_torch.utils.corpus import gauntlet_cases
+
+    ns = 8
+    mesh = make_mesh({"sp": ns}, devices=["cuda"] * ns)
+    coll = collectives(mesh, "sp")
+
+    def sorts_of(data):
+        run = lambda: mb.bwt_megablock(data, mesh, "small")
+        return (_captured_sorts((mb,), run, attr="sort_rows"),
+                _captured_sorts((mb,), run, attr="merge_rows"))
+
+    # ---- one 4 MiB text block, S = 512 KiB: every sort shape against its twins
+    block = np.frombuffer(text[: 4 * MIB][::-1], np.uint8)
+    arr = torch.from_numpy(block.copy()).cuda()
+    local, stages = sorts_of(block)
+    shapes = sorted((len(k), len(pl), tuple(k[0].shape)) for k, pl in local + stages)
+    Sb = len(block) // ns
+    if shapes != sorted([(nk, npl, (ns, w)) for nk, npl in ((5, 0), (2, 0), (1, 1))
+                         for w in (Sb, 2 * Sb)]):
+        raise AssertionError(f"the megablock's sorts have other shapes than expected: {shapes}")
+    for keys, payloads in local:
+        _hold_rows_sort(f"4 MiB block, local sort, {len(keys)} keys", keys, payloads)
+    for keys, payloads in stages:
+        _hold_stage_merge(f"4 MiB block, stage, {len(keys)} keys", keys, payloads)
+    for (keys, payloads), (skeys, spayloads) in zip(local, stages):
+        ms = _time_ms(lambda: S.sort_rows(keys, payloads))
+        chain = _time_ms(lambda: S.sort_rows_ref(keys, payloads))
+        one = _time_ms(lambda: S.merge_rows(skeys, spayloads))
+        resort = _time_ms(lambda: S.sort_rows(skeys, spayloads))
+        schain = _time_ms(lambda: S.sort_rows_ref(skeys, spayloads))
+        print(f"[megablock] 4 MiB block, {len(keys)} keys + {len(payloads)} payloads: local "
+              f"sort_rows ({ns}, {Sb}) {ms:.3f} ms (torch.sort chain {chain:.3f}); a stage "
+              f"({ns}, {2 * Sb}) as one merge level {one:.3f} ms, re-sorted by sort_rows "
+              f"{resort:.3f} (torch.sort chain {schain:.3f})")
+    del local, stages
+
+    want, v3_ms, _ = _block_call("megablock", "4 MiB text block, bwt_v3 (for comparison)",
+                                 lambda: bwt_v3(arr, "small"))
+    mb.stats.reset()
+    (L, base), _, launches4 = _counted("bwt_megablock 4 MiB",
+                                       lambda: mb.bwt_megablock(block, mesh, "small"))
+    rounds4, syncs4 = mb.stats.rounds, mb.stats.host_syncs
+    _same_bwt("bwt_megablock, 4 MiB text block", (L.reshape(-1), base), want)
+    mega_ms = _events_ms(lambda: mb.bwt_megablock(block, mesh, "small"), 3)
+    real_stage = mb._stage_merge
+    mb._stage_merge = mb._stage_sort
+    try:
+        got = mb.bwt_megablock(block, mesh, "small")
+        resort_ms = _events_ms(lambda: mb.bwt_megablock(block, mesh, "small"), 3)
+    finally:
+        mb._stage_merge = real_stage
+    _same_bwt("bwt_megablock with re-sorted stages", (got[0].reshape(-1), got[1]), want)
+    print(f"[megablock] 4 MiB text block, ns {ns}: bwt_megablock {mega_ms:.3f} ms = "
+          f"{mega_ms / v3_ms:.1f}x bwt_v3's {v3_ms:.3f} (CUDA events, incl. the copy to the card "
+          f"and the host reads); rounds {rounds4}, host reads {syncs4}, "
+          f"launches {launches4}; (L, base) == bwt_v3's; with every stage re-sorted (the JAX "
+          f"program's form) {resort_ms:.3f} ms, the same (L, base)")
+
+    # ---- Gauntlet: the tie group that spans every shard
+    for name in ("zeros", "fibonacci"):
+        g = np.frombuffer(gauntlet_cases(MIB)[name][:MIB], np.uint8)
+        mb.stats.reset()
+        (L, base), dt, launches = _counted(f"bwt_megablock {name}",
+                                           lambda: mb.bwt_megablock(g, mesh, "small"))
+        _same_bwt(f"bwt_megablock on Gauntlet {name}", (L.reshape(-1), base),
+                  bwt_v3(torch.from_numpy(g.copy()).cuda(), "small"))
+        print(f"[megablock] Gauntlet {name} 2^20, ns {ns}: {dt * 1e3:.3f} ms (host clock), rounds "
+              f"{mb.stats.rounds}, launches {launches}; (L, base) == bwt_v3's")
+
+    # ---- 64 MiB as ONE megablock, S = 8 MiB: the pieces apart, by hand
+    n = len(text)
+    Sm = n // ns
+    view = np.frombuffer(text, np.uint8)[::-1]
+    data_dev = coll.shard(torch.from_numpy(view.copy()))
+    torch.cuda.reset_peak_memory_stats()
+    (rank, na), init_ms, init_host = _device_and_enqueue_ms(
+        lambda: mb._make_init(mesh, Sm, n, "small")(data_dev))
+    round_fn = mb._make_round_dyn(mesh, Sm, n, "small")
+    k, per_round = 3, []
+    while int(na) != 0:
+        (rank, na), ms, host = _device_and_enqueue_ms(lambda: round_fn(rank, k))
+        per_round.append((k, ms, host, int(na)))
+        k *= 4
+    (L_dev, base), emit_ms, _ = _device_and_enqueue_ms(
+        lambda: mb._make_emit(mesh, Sm, n)(rank, data_dev))
+    hist, hist_ms, _ = _device_and_enqueue_ms(lambda: megapipe._make_hist(mesh)(L_dev))
+    values, lengths = megapipe._codes_arrays(megapipe.build_encoder_var(hist.cpu().numpy()))
+    max_len = max(int(lengths.max()), 1)
+    vals_dev = torch.from_numpy(values.astype(np.int64)).cuda()
+    lens_dev = torch.from_numpy(lengths).cuda()
+    _, pack_ms, _ = _device_and_enqueue_ms(
+        lambda: megapipe._make_pack(mesh, max_len)(L_dev, vals_dev, lens_dev))
+    print(f"[megablock] 64 MiB as one megablock, ns {ns}, S {Sm}, by hand (device ms by CUDA "
+          f"events / host ms to enqueue): init {init_ms:.3f} / {init_host:.3f}; rounds "
+          + "; ".join(f"k={k} {ms:.3f} / {host:.3f} (nactive {na})" for k, ms, host, na in per_round)
+          + f"; emit {emit_ms:.3f}; hist {hist_ms:.3f}; pack (max code length {max_len}) "
+          f"{pack_ms:.3f}; peak device memory {torch.cuda.max_memory_allocated() / MIB:.0f} MiB")
+    del rank, L_dev, data_dev
+
+    # ---- the same through the entry points
+    torch.cuda.reset_peak_memory_stats()
+    mb.stats.reset()
+    blob, enc_dt, launches = _counted(
+        "encode_megablock 64 MiB", lambda: megapipe.encode_megablock(text, mesh, "a4", "var"))
+    rounds, syncs = mb.stats.rounds, mb.stats.host_syncs
+    peak = torch.cuda.max_memory_allocated() / MIB
+    t0 = time.perf_counter()
+    back = megapipe.decode_megablock(blob)
+    dec_dt = time.perf_counter() - t0
+    if back != text:
+        raise AssertionError("decode_megablock does not give the 64 MiB back")
+    if struct.unpack("<BBHQII", blob[4:24]) != (0, 1, ns, n, int(base), 0):
+        raise AssertionError("the ATM1 header differs from the run by hand")
+    packed = port.encode_file(text, "a4", 4 * MIB, pack=True, impl="micro", device="cuda")
+    print(f"[megablock] encode_megablock a4 var, 64 MiB, ns {ns}: {enc_dt:.4f} s = "
+          f"{n / 1e6 / enc_dt:.2f} MB/s (host clock); rounds {rounds}, host "
+          f"reads {syncs}, launches {launches}, peak device memory {peak:.0f} MiB = "
+          f"{peak * MIB / n:.0f} B per input byte; decode_megablock {dec_dt:.4f} s, round trip ok; "
+          f"ATM1 {len(blob)} bytes against ATA2 (4 MiB blocks) {len(packed)}: "
+          f"{len(blob) / len(packed):.2f}x")
+
+    # ---- the 64 MiB run's sort shapes against their twins, whole sorts
+    local, stages = sorts_of(view)
+    for keys, payloads in local:
+        _hold_rows_sort(f"64 MiB megablock, local sort, {len(keys)} keys", keys, payloads,
+                        levels=False)
+    for keys, payloads in stages:
+        _hold_stage_merge(f"64 MiB megablock, stage, {len(keys)} keys", keys, payloads,
+                          level=False)
+    keys5 = next(k for k, _ in local if len(k) == 5)
+    stage5 = next(k for k, _ in stages if len(k) == 5)
+    del local, stages
+    mat = torch.stack(keys5).view(5, n)
+    k1_ms = _time_ms(lambda: S.sort_tiles(mat))
+    tuples = S.sort_tiles(mat)
+    first_ms = _time_ms(lambda: S.merge_level(mat, tuples, S.TILE))
+    del mat, tuples, keys5
+    smat = torch.stack(stage5).view(5, 2 * n)
+    del stage5
+    index = torch.arange(2 * n, dtype=torch.int32, device="cuda")
+    stuples = torch.cat([smat[:4], index[None]])
+    stage_ms = _time_ms(lambda: S.merge_level(smat, stuples, Sm))
+    b1 = kernel_bounds(n, 5, 4, S.TILE, n)
+    b2 = kernel_bounds(2 * n, 5, 4, S.TILE, 2 * n)
+    print(f"[megablock] kernels at the 64 MiB shapes, 5 keys (4 carried) + index: K1 over "
+          f"({ns}, {Sm}) {k1_ms:.3f} ms (bound {b1['sort_tiles']['bound_ms']:.3f}); one K2 level "
+          f"there {first_ms:.3f} (bound {b1['merge_level']['bound_ms']:.3f}); the stage's K2 "
+          f"level at run {Sm} over ({ns}, {2 * Sm}) {stage_ms:.3f} "
+          f"(bound {b2['merge_level']['bound_ms']:.3f})")
+    shapes = {"sort_tiles": {"ms_megablock": k1_ms,
+                             "bound_ms_megablock": b1["sort_tiles"]["bound_ms"]},
+              "merge_level": {"ms_megablock": stage_ms,
+                              "bound_ms_megablock": b2["merge_level"]["bound_ms"]}}
+    return launches, launches4, shapes
+
+
+def phase_rows_inverse_and_certificate(text: bytes) -> None:
+    """``unbwt_blocks`` with all rows in one walk against the row loop, and
+    ``formats.encode`` by the device certificate, on and off."""
+    import numpy as np
+    import torch
+
+    import archon_tpu_torch as port
+    from archon_tpu_torch.core import batched, unbwt
+    from archon_tpu_torch.parallel import blocks as pblocks
+
+    block = 4 * MIB
+    rows = torch.from_numpy(np.frombuffer(text[: 8 * block], np.uint8).reshape(8, block).copy())
+    rows = rows.cuda().flip(1)
+    L, base = batched.bwt_batched_v3(rows, "small")
+    got, rows_ms = _timed(lambda: pblocks.unbwt_blocks(L, base, "small"), calls=2)
+    bases = base.tolist()
+    loop, loop_ms = _timed(lambda: torch.stack(
+        [unbwt.bwt_inverse(L[b], bases[b], "small") for b in range(8)]), calls=1)
+    if not (torch.equal(got, loop) and torch.equal(got, rows.flip(1))):
+        raise AssertionError("unbwt_blocks differs from the row loop or from the blocks")
+    print(f"[batched] unbwt_blocks (8, {block}): all rows in one lockstep walk {rows_ms:.3f} ms, "
+          f"row by row through bwt_inverse {loop_ms:.3f} ms (CUDA events); equal, and the blocks")
+    one = text[:block]
+    want, on_ms = _timed(lambda: port.encode(one, "a4", device="cuda"), calls=3)
+    off, off_ms = _timed(lambda: port.encode(one, "a4", verify=False, device="cuda"), calls=3)
+    L_ref, base_ref = bwt_reference(one, "a4")
+    if not want == off == L_ref.tobytes() + np.uint32(base_ref).tobytes():
+        raise AssertionError("formats.encode differs from the reference BWT")
+    print(f"[batched] formats.encode of {block} bytes, a4: verify on (bwt_batched_v3_certified on "
+          f"one row) {on_ms:.3f} ms, off {off_ms:.3f} ms (CUDA events, incl. the copies); == the "
+          f"reference BWT")
+
+
 def phase_cli(text: bytes) -> None:
     """``python -m archon_tpu_torch e --impl it2 --profile-dir`` and ``d`` in
-    subprocesses on a 16 MiB file."""
+    subprocesses on a 16 MiB file, then ``e --sp 8`` and ``d`` of its blob."""
     import shutil
 
     from archon_tpu_torch.ops._build import BUILD_DIR
@@ -1228,6 +1525,23 @@ def phase_cli(text: bytes) -> None:
         print(f"[cli] e --impl it2 --profile-dir on {16 * MIB} bytes: {enc_dt:.2f} s for the "
               f"process; report: {' | '.join(report[-5:])}; trace {traces[0].name} "
               f"{traces[0].stat().st_size} bytes; d gives the input back")
+        t0 = time.perf_counter()
+        enc = subprocess.run([*cmd, "e", str(src), str(out), "--sp", "8"], cwd=ROOT,
+                             capture_output=True, text=True, timeout=600)
+        enc_dt = time.perf_counter() - t0
+        if enc.returncode != 0 or "8 shards on 1 device (cuda)" not in enc.stdout:
+            raise AssertionError(f"the command line's e --sp 8 failed: {enc.stderr[-2000:]}")
+        size = out.stat().st_size
+        if out.read_bytes()[:4] != b"ATM1":
+            raise AssertionError("e --sp 8 wrote no ATM1 container")
+        back.unlink()
+        dec = subprocess.run([*cmd, "d", str(out), str(back)], cwd=ROOT, capture_output=True,
+                             text=True, timeout=600)
+        if dec.returncode != 0 or back.read_bytes() != text[: 16 * MIB]:
+            raise AssertionError(f"the command line's d of the ATM1 file failed: {dec.stderr[-2000:]}")
+        report = [ln for ln in enc.stdout.splitlines() if ln.strip()]
+        print(f"[cli] e --sp 8 on {16 * MIB} bytes: {enc_dt:.2f} s for the process, ATM1 of "
+              f"{size} bytes; report: {' | '.join(report[-5:])}; d gives the input back")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1284,15 +1598,19 @@ def main() -> int:
     fast_block = timed_phase(phase_v1, text)
     sais_block = timed_phase(phase_sais, text)
     it2_launches, it2_block = timed_phase(phase_it2, text, stream)
+    mega_launches, mega_block, mega_shapes = timed_phase(phase_megablock, text)
+    timed_phase(phase_rows_inverse_and_certificate, text)
     timed_phase(phase_cli, text)
     timed_phase(phase_memory, text)
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-         "launches": launches[name] + batched_launches[name] + it2_launches[name],
+         "launches": (launches[name] + batched_launches[name] + it2_launches[name]
+                      + mega_launches[name]),
          "launches_stream": launches[name], "launches_batched": batched_launches[name],
-         "launches_it2": it2_launches[name], "launches_it2_block": it2_block[name],
+         "launches_it2": it2_launches[name], "launches_megablock": mega_launches[name],
+         "launches_megablock_4mib": mega_block[name], "launches_it2_block": it2_block[name],
          "launches_sais_block": sais_block[name], "launches_fast_block": fast_block[name],
-         "max_abs_err": KERNEL_ERR[name], **stats[name]}
+         "max_abs_err": KERNEL_ERR[name], **stats[name], **mega_shapes[name]}
         for name in ("sort_tiles", "merge_level")
     ]
     print(json.dumps({"kernels": kernels}))

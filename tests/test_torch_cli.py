@@ -1,6 +1,6 @@
 """The port's command line against the JAX package's: ``--impl it2``, the
 stage report and ``--profile-dir``, ``a4|a7 d`` on the host or on a device,
-and the options that wait for the multi-device slice."""
+``--dp`` and ``--sp``, and ``d`` on an ``ATM1`` file."""
 
 import pytest
 
@@ -79,21 +79,55 @@ def test_cli_config_carries_the_jax_fields(monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [("--dp", "2"), ("--sp", "2"), ("--dp", "2", "--resume")])
-def test_cli_multi_device_options_raise(extra, tmp_path):
-    src = tmp_path / "in"
+def test_cli_multi_device_options_raise(extra, tmp_path, capsys):
+    """They raised until the mesh was ported; now each writes what the JAX
+    command line writes with the same options, and ``d`` gives the input back."""
+    src, out, ref, back = (tmp_path / x for x in ("in", "out", "ref", "back"))
     src.write_bytes(TEXT[:2000])
-    with pytest.raises(ValueError, match="multi-device slice"):
-        cli.main(["e", str(src), str(tmp_path / "out"), *CPU, *extra])
+    assert cli.main(["e", str(src), str(out), "-b", "512", *CPU, *extra]) == 0
+    printed = capsys.readouterr().out
+    assert ("2 shards on 1 device (cpu)" in printed) == ("--sp" in extra)
+    assert jcli.main(["e", str(src), str(ref), "-b", "512", *extra]) == 0
+    assert out.read_bytes() == ref.read_bytes()
+    assert out.read_bytes()[:4] == (b"ATM1" if "--sp" in extra else b"ATA1")
+    assert cli.main(["d", str(out), str(back)]) == 0
+    assert back.read_bytes() == TEXT[:2000]
 
 
 def test_megablock_container_is_named(tmp_path):
-    blob = b"ATM1" + bytes(40)
+    """``decode_file`` and ``extract_block`` answer an ``ATM1`` blob by name
+    (the JAX ``decode_file`` answers "bad magic"); the command line's ``d``
+    reads it."""
+    from archon_tpu_torch.parallel import megapipe
+    from archon_tpu_torch.parallel.blocks import make_mesh
+
+    blob = megapipe.encode_megablock(TEXT[:2000], make_mesh({"sp": 2}, devices=["cpu"] * 2))
+    assert blob[:4] == b"ATM1"
     for fn in (blocks.decode_file, lambda b: blocks.extract_block(b, 0)):
-        with pytest.raises(ValueError, match="ATM1.*multi-device slice"):
+        with pytest.raises(ValueError, match="bad magic.*ATM1.*megapipe"):
             fn(blob)
-    src = tmp_path / "in"
+    src, back = tmp_path / "in", tmp_path / "back"
     src.write_bytes(blob)
-    with pytest.raises(ValueError, match="multi-device slice"):
-        cli.main(["d", str(src), str(tmp_path / "out")])
+    assert cli.main(["d", str(src), str(back)]) == 0
+    assert back.read_bytes() == TEXT[:2000]
     with pytest.raises(ValueError, match="bad magic"):
         blocks.decode_file(b"NOPE" + bytes(40))
+
+
+def test_sp_with_a_card_for_every_shard_spawns_one_rank_a_card(tmp_path, monkeypatch, capsys):
+    """Which layout ``e --sp N --device cuda`` takes is decided by the card
+    count alone: N or more cards, one process a card over NCCL."""
+    import torch
+
+    from archon_tpu_torch.parallel import collectives
+
+    calls = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(collectives, "spawn", lambda fn, world, backend, *a: calls.append(
+        (fn.__name__, world, backend, a[1:])) or b"blob")
+    src, out = tmp_path / "in", tmp_path / "out"
+    src.write_bytes(TEXT[:2000])
+    assert cli.main(["e", str(src), str(out), "--sp", "2", "-g", "a7"]) == 0
+    assert calls == [("_encode_on_rank", 2, "nccl", ("cuda", "a7", "var"))]
+    assert out.read_bytes() == b"blob" and "2 shards on 2 devices" in capsys.readouterr().out

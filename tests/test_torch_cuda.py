@@ -1,5 +1,5 @@
-"""CUDA kernels, the forward BWT (v3, v1, IT-2, SA-IS), a6 and the device
-inverse on the card (marker ``cuda``).
+"""CUDA kernels, the forward BWT (v3, v1, IT-2, SA-IS), a6, the device
+inverse and the sharded megablock on the card (marker ``cuda``).
 
 A CUDA kernel has no CPU mode, so these skip without a card.  The file
 imports no JAX, so on a GPU machine without JAX it runs alone:
@@ -255,3 +255,81 @@ def test_it2_container_on_card_matches_stream(cuda_device):
     assert blocks._streamed_forward.it2_fallbacks == 1
     assert got == blocks.encode_file(data, "a7", n, impl="stream", device=cuda_device)
     assert blocks.decode_file(got) == data
+
+
+def _card_mesh(cuda_device, ns=8):
+    from archon_tpu_torch.parallel.blocks import make_mesh
+
+    return make_mesh({"sp": ns}, devices=[cuda_device] * ns)
+
+
+def test_megablock_sort_shapes_match_twins_on_card(cuda_device, monkeypatch):
+    """Every sort a 1 MiB ``bwt_megablock`` of 8 shards launches (5, 2 and 1
+    keys; ``sort_rows`` at (8, S), the stages' ``merge_rows`` at (8, 2S))
+    against ``sort_rows_ref``; a stage as one K2 level against the same
+    stage re-sorted, bit for bit."""
+    from archon_tpu_torch.parallel import megablock as mb
+
+    seen = {"sort_rows": [], "merge_rows": []}
+    for name in seen:
+        real = getattr(mb, name)
+        monkeypatch.setattr(mb, name, lambda k, p=(), name=name, real=real: seen[name].append(
+            (list(k), list(p))) or real(k, p))
+    block = np.frombuffer(text_like(1 << 20, 6), np.uint8)
+    L, base = mb.bwt_megablock(block, _card_mesh(cuda_device), "small")
+    Lw, bw = fast2.bwt_v3(torch.from_numpy(block.copy()).to(cuda_device), "small")
+    assert torch.equal(L.reshape(-1), Lw) and base == bw
+    monkeypatch.undo()
+    shapes = lambda calls: {(len(k), len(p), tuple(k[0].shape)) for k, p in calls}
+    S = (1 << 20) // 8
+    assert shapes(seen["sort_rows"]) == {(5, 0, (8, S)), (2, 0, (8, S)), (1, 1, (8, S))}
+    assert shapes(seen["merge_rows"]) == {(5, 0, (8, 2 * S)), (2, 0, (8, 2 * S)), (1, 1, (8, 2 * S))}
+    for keys, payloads in seen["sort_rows"][:6]:
+        got, want = tsort.sort_rows(keys, payloads), tsort.sort_rows_ref(keys, payloads)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    for keys, payloads in seen["merge_rows"][:8] + seen["merge_rows"][-8:]:
+        before = (tsort.sort_tiles.launches, tsort.merge_level.launches)
+        got = tsort.merge_rows(keys, payloads)
+        assert (tsort.sort_tiles.launches, tsort.merge_level.launches) == (before[0], before[1] + 1)
+        assert all(torch.equal(g, w) for g, w in zip(got, tsort.sort_rows_ref(keys, payloads)))
+        assert all(torch.equal(g, w) for g, w in zip(got, tsort.sort_rows(keys, payloads)))
+
+
+@pytest.mark.parametrize("sentinel", ["small", "large"])
+def test_bwt_megablock_on_card_matches_bwt_v3(cuda_device, sentinel):
+    """1 MiB of text and 2^18 zeros as 8 shards in process on the card."""
+    from archon_tpu_torch.parallel import megablock as mb
+
+    mesh = _card_mesh(cuda_device)
+    for block in (np.frombuffer(text_like(1 << 20, 7), np.uint8), np.zeros(1 << 18, np.uint8)):
+        launches = (tsort.sort_tiles.launches, tsort.merge_level.launches)
+        L, base = mb.bwt_megablock(block, mesh, sentinel)
+        assert L.device.type == "cuda" and L.shape == (8, len(block) // 8)
+        Lw, bw = fast2.bwt_v3(torch.from_numpy(block.copy()).to(cuda_device), sentinel)
+        assert torch.equal(L.reshape(-1), Lw) and base == bw
+        assert tsort.sort_tiles.launches > launches[0] and tsort.merge_level.launches > launches[1]
+
+
+def test_megapipe_on_card_writes_the_cpu_blob(cuda_device):
+    """``encode_megablock`` on the card (pad > 0, both coders) against the
+    same call on CPU tensors; each blob decodes to the input."""
+    from archon_tpu_torch.parallel import megapipe
+    from archon_tpu_torch.parallel.blocks import make_mesh
+
+    data = text_like((1 << 18) - 5, 8)
+    cpu_mesh = make_mesh({"sp": 8}, devices=["cpu"] * 8)
+    for gen, coder in (("a4", "var"), ("a7", "byte")):
+        blob = megapipe.encode_megablock(data, _card_mesh(cuda_device), gen, coder)
+        assert blob == megapipe.encode_megablock(data, cpu_mesh, gen, coder)
+        assert megapipe.decode_megablock(blob) == data
+
+
+def test_unbwt_blocks_on_card_matches_row_loop(cuda_device):
+    from archon_tpu_torch.parallel import blocks as pblocks
+
+    rows = torch.stack([torch.from_numpy(np.frombuffer(text_like(1 << 16, seed), np.uint8).copy())
+                        for seed in (1, 2, 3)]).to(cuda_device)
+    L, base = pblocks.bwt_blocks(rows, "large")
+    got = pblocks.unbwt_blocks(L, base, "large")
+    loop = torch.stack([unbwt.bwt_inverse(L[b], int(base[b]), "large") for b in range(3)])
+    assert torch.equal(got, loop) and torch.equal(got, rows.flip(1))

@@ -2,8 +2,9 @@
 fresh interpreter: this test process already holds both, tests/conftest.py
 imports jax) through its encoders with every ``impl``, a resume, the a6 round
 trip, the device inverse, the v1, SA-IS and IT-2 sorters, the command line
-with a profile, and every module of the package; and its kernel build fails
-loudly."""
+with a profile, the mesh, the sharded megablock and its container, and every
+module of the package (none needs ``triton`` to import); and its kernel build
+fails loudly."""
 
 import subprocess
 import sys
@@ -37,8 +38,8 @@ for config in ("byte", "var"):
     assert a6_decode(a6_encode(data, config, device="cpu"), config, device="cpu") == data
 assert decode(encode(data, "a7", device="cpu"), "a7", device="cpu") == data
 assert sorted(archon_tpu_torch.__all__) == sorted(
-    ["ArchonConfig", "a6_decode", "a6_encode", "decode", "decode_file", "encode", "encode_file",
-     "encode_to_path"]
+    ["ArchonConfig", "__version__", "a6_decode", "a6_encode", "decode", "decode_file", "encode",
+     "encode_file", "encode_to_path"]
 )
 import importlib, pkgutil
 import numpy as np, torch
@@ -47,8 +48,16 @@ for name in names:
     if not name.endswith("__main__"):  # importing it runs the command line
         importlib.import_module(name)
 for new in ("core.fast", "core.it2", "core.sais_tpu", "ops.itn", "ops.sais", "entropy.coder",
-            "golden.a6", "utils.corpus", "utils.timing", "utils.debug", "utils.tools"):
+            "golden.a6", "utils.corpus", "utils.timing", "utils.debug", "utils.tools",
+            "parallel.collectives", "parallel.megablock", "parallel.megapipe", "parallel.dryrun"):
     assert "archon_tpu_torch." + new in names, new
+from archon_tpu_torch.parallel import megapipe
+from archon_tpu_torch.parallel.blocks import make_mesh
+from archon_tpu_torch.parallel.dryrun import dryrun_multichip
+assert encode_file(data, "a4", 256, dp=2, device="cpu") == encode_file(data, "a4", 256, device="cpu")
+mega = megapipe.encode_megablock(data, make_mesh({"sp": 4}, devices=["cpu"] * 4), "a7")
+assert mega[:4] == b"ATM1" and megapipe.decode_megablock(mega) == data
+dryrun_multichip(2, device="cpu")
 from archon_tpu_torch.core import bwt, fast, fast2, sais_tpu
 from archon_tpu_torch.golden import a6 as golden_a6
 arr = np.frombuffer(data, np.uint8)
@@ -68,7 +77,11 @@ with tempfile.TemporaryDirectory() as td:
     assert os.listdir(prof) and cli.main(["d", out, back]) == 0
     with open(back, "rb") as f:
         assert f.read() == data
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "archon_tpu"))
+    assert cli.main(["e", src, out, "--sp", "2", "--device", "cpu"]) == 0
+    assert cli.main(["d", out, back]) == 0
+    with open(back, "rb") as f:
+        assert f.read() == data
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "archon_tpu", "triton"))
 assert not bad, bad
 print("probe ok")
 """
@@ -104,8 +117,9 @@ def test_port_sources_do_not_import_jax():
     """Nor anything of the JAX package: no import whose first name is
     ``jax`` or ``archon_tpu``, in the port or in ``chip_smoke.py``."""
     sources = [*(ROOT / "archon_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]
-    assert len(sources) > 35 and {"it2.py", "sais_tpu.py", "fast.py", "tools.py", "timing.py",
-                                  "debug.py"} <= {p.name for p in sources} and not (ROOT / "archon_tpu_torch" / "host.py").exists()
+    assert len(sources) > 39 and {"it2.py", "sais_tpu.py", "fast.py", "tools.py", "timing.py",
+                                  "debug.py", "megablock.py", "megapipe.py", "collectives.py",
+                                  "dryrun.py"} <= {p.name for p in sources} and not (ROOT / "archon_tpu_torch" / "host.py").exists()
     for path in sources:
         for line in path.read_text().splitlines():
             words = line.replace(",", " ").split()

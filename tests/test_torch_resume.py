@@ -88,7 +88,7 @@ def test_pipe_blocks_env_is_honoured(pipe, monkeypatch):
 
     real = pblocks.bwt_blocks_micro_certified
     monkeypatch.setattr(pblocks, "bwt_blocks_micro_certified",
-                        lambda d, s: seen.append(d.shape[0]) or real(d, s))
+                        lambda d, s, mesh=None: seen.append(d.shape[0]) or real(d, s, mesh=mesh))
     monkeypatch.setenv("ARCHON_PIPE_BLOCKS", pipe)
     assert blocks.encode_file(data, "a4", BLOCK, device="cpu") == want
     # 5 whole blocks, then a short one of its own
@@ -99,8 +99,9 @@ def test_pipe_blocks_env_is_honoured(pipe, monkeypatch):
 def test_bad_arguments_raise(monkeypatch, tmp_path):
     with pytest.raises(ValueError, match="unknown impl"):
         blocks.encode_file(TEXT, "a4", BLOCK, impl="nope", device="cpu")
-    with pytest.raises(ValueError, match="mesh"):
-        blocks.encode_file(TEXT, "a4", BLOCK, dp=2, device="cpu")
+    # dp=2 raised until the mesh was ported: now it writes the bytes of dp=1
+    assert blocks.encode_file(TEXT, "a4", BLOCK, dp=2, device="cpu") == blocks.encode_file(
+        TEXT, "a4", BLOCK, device="cpu")
     with pytest.raises(ValueError, match="generation"):
         blocks.encode_to_path(TEXT, "/dev/null", "a5", device="cpu")
     # no quiet step back to the CPU: a CUDA request without a usable card raises

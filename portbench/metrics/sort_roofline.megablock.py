@@ -1,0 +1,8 @@
+"""sort_roofline.megablock: ``sort_roofline`` of the megablock's cells, under the name that
+moves ``encode_MBps.megablock``.  Device trace."""
+
+from portbench.harness import load_reader
+
+_base = load_reader("sort_roofline")
+read = _base.read
+COUNTERS = getattr(_base, "COUNTERS", ())

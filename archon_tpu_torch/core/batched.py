@@ -36,6 +36,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.sort import sort_rows
+from ..utils.timing import span
 from .doubling import SENT_SMALL, _Counter, _heads, _packed3
 from .fast import _ranks_fused, _Stages
 from .fast2 import (
@@ -258,26 +259,29 @@ def _full_rounds(data2: torch.Tensor, sentinel: str):
     count).  G is the packed trigrams at bootstrap exit, the last inverted
     rank after full rounds."""
     n = data2.shape[1]
-    prev2 = torch.roll(data2, 1, dims=1)
-    si, rs, ac, na, prev_s = _bootstrap_sorted2(data2, prev2, sentinel)
-    G = _trigram_keys2(data2, sentinel)[:, :n]
-    k = 12
-    m = _max_count(na)
-    while m * 16 > n and m > 0 and k < n:
-        si, rs, ac, na, prev_s, G = _round_full_sorted2(si, rs, prev2, k, sentinel)
-        k *= 4
+    with span("archon.batched.bootstrap"):
+        prev2 = torch.roll(data2, 1, dims=1)
+        si, rs, ac, na, prev_s = _bootstrap_sorted2(data2, prev2, sentinel)
+        G = _trigram_keys2(data2, sentinel)[:, :n]
+        k = 12
         m = _max_count(na)
+    while m * 16 > n and m > 0 and k < n:
+        with span("archon.batched.round"):
+            si, rs, ac, na, prev_s, G = _round_full_sorted2(si, rs, prev2, k, sentinel)
+            k *= 4
+            m = _max_count(na)
     return k, si, rs, ac, na, prev_s, G, prev2, m
 
 
 def _micro_tail(k: int, si, rs, ac, na, G, sentinel: str):
     """Tile extraction and the two inversion-free micro rounds: (sorted
     positions, refined ranks, still-active counts per row)."""
-    cap3 = min(si.shape[1], 4096)
-    apos_m, ar0_m = _extract_actives_sorted2(si, rs, ac, na, cap3)
-    g = max(k // 4, 1)
-    pos1, r1m, _ = _micro_round2(G, g, apos_m, ar0_m, 4, 16, sentinel)
-    return _micro_round2(G, g, pos1, r1m, 16, 64, sentinel)
+    with span("archon.batched.micro_tail"):
+        cap3 = min(si.shape[1], 4096)
+        apos_m, ar0_m = _extract_actives_sorted2(si, rs, ac, na, cap3)
+        g = max(k // 4, 1)
+        pos1, r1m, _ = _micro_round2(G, g, apos_m, ar0_m, 4, 16, sentinel)
+        return _micro_round2(G, g, pos1, r1m, 16, 64, sentinel)
 
 
 def _no_actives(si):
@@ -289,28 +293,30 @@ def _no_actives(si):
 def _emit_micro2(prev2, si, rs, prev_s, pos, r):
     """Scatter-correct the carried payload at the refined actives; compute
     per-row base.  Valid only for rows whose ``resolved`` flag is True."""
-    n = si.shape[1]
-    valid = pos >= 0
-    b_slot = (si == 0).to(torch.uint8).argmax(dim=1).to(_I32)
-    base = _take_rows(rs, b_slot[:, None])[:, 0]
-    if pos.shape[1] == 0:
-        return prev_s, base
-    safe = torch.where(valid, pos, 0)
-    L = _scatter_drop(prev_s, torch.where(valid, r, n), _take_rows(prev2, safe))
-    at0 = torch.where(valid & (pos == 0), r, -1).max(dim=1).values
-    return L, torch.maximum(base, at0)
+    with span("archon.batched.emit"):
+        n = si.shape[1]
+        valid = pos >= 0
+        b_slot = (si == 0).to(torch.uint8).argmax(dim=1).to(_I32)
+        base = _take_rows(rs, b_slot[:, None])[:, 0]
+        if pos.shape[1] == 0:
+            return prev_s, base
+        safe = torch.where(valid, pos, 0)
+        L = _scatter_drop(prev_s, torch.where(valid, r, n), _take_rows(prev2, safe))
+        at0 = torch.where(valid & (pos == 0), r, -1).max(dim=1).values
+        return L, torch.maximum(base, at0)
 
 
 def _rank_micro2(si, rs, pos, r):
     """The final rank rows after the micro tail: resolved ranks never move
     (positional-rank invariant); only the refined actives' slots differ from
     the coarse inversion."""
-    n = si.shape[1]
-    rank = _invert_rows(si, rs)
-    if pos.shape[1] == 0:
-        return rank
-    valid = pos >= 0
-    return _scatter_drop(rank, torch.where(valid, pos, n), torch.where(valid, r, 0))
+    with span("archon.batched.emit"):
+        n = si.shape[1]
+        rank = _invert_rows(si, rs)
+        if pos.shape[1] == 0:
+            return rank
+        valid = pos >= 0
+        return _scatter_drop(rank, torch.where(valid, pos, n), torch.where(valid, r, 0))
 
 
 def _bwt_batched_v3_impl(data2: torch.Tensor, sentinel: str, want_rank: bool):
@@ -428,17 +434,18 @@ def verify_bwt_batched(data2, rank2, L2, base2, sentinel: str = SENT_SMALL) -> t
     B, n = data2.shape
     if n == 0:
         return torch.ones(B, dtype=torch.bool, device=data2.device)
-    iota2 = _row_iota(B, n, data2.device)
-    off = -1 if sentinel == SENT_SMALL else n + 1
-    nxt = torch.where(iota2 + 1 < n, torch.roll(rank2, -1, dims=1), off)
-    r_s, c_s, nxt_s, L_s = sort_rows(
-        (rank2,), (data2.to(_I32), nxt, torch.roll(data2, 1, dims=1))
-    )
-    perm_ok = (r_s == iota2).all(dim=1)
-    c_lt = c_s[:, :-1] < c_s[:, 1:]
-    c_eq = c_s[:, :-1] == c_s[:, 1:]
-    adj_ok = (c_lt | (c_eq & (nxt_s[:, :-1] < nxt_s[:, 1:]))).all(dim=1)
-    return perm_ok & adj_ok & (L_s == L2).all(dim=1) & (base2 == rank2[:, 0])
+    with span("archon.batched.certificate"):
+        iota2 = _row_iota(B, n, data2.device)
+        off = -1 if sentinel == SENT_SMALL else n + 1
+        nxt = torch.where(iota2 + 1 < n, torch.roll(rank2, -1, dims=1), off)
+        r_s, c_s, nxt_s, L_s = sort_rows(
+            (rank2,), (data2.to(_I32), nxt, torch.roll(data2, 1, dims=1))
+        )
+        perm_ok = (r_s == iota2).all(dim=1)
+        c_lt = c_s[:, :-1] < c_s[:, 1:]
+        c_eq = c_s[:, :-1] == c_s[:, 1:]
+        adj_ok = (c_lt | (c_eq & (nxt_s[:, :-1] < nxt_s[:, 1:]))).all(dim=1)
+        return perm_ok & adj_ok & (L_s == L2).all(dim=1) & (base2 == rank2[:, 0])
 
 
 # ---------------------------------------------------------------- v1 family

@@ -40,6 +40,7 @@ from .. import native
 from ..core.doubling import SENT_LARGE, SENT_SMALL
 from ..entropy.pack import pack_block, unpack_block
 from ..golden import sa as golden
+from ..utils.timing import span
 
 __all__ = ["encode_file", "encode_to_path", "decode_file", "extract_block", "as_device",
            "as_byte_tensor",
@@ -179,8 +180,9 @@ def _reversed_on(dev: torch.device, blks) -> torch.Tensor:
     """Equal-length blocks as the rows of a (B, n) uint8 tensor on ``dev``,
     each reversed (the format transforms the reversed block).  The copy to
     the device is of the bytes as they are; the reversal runs there."""
-    batch = np.stack([np.frombuffer(b, np.uint8) for b in blks])
-    return torch.from_numpy(batch).to(dev).flip(1)
+    with span("archon.container.stage_in"):
+        batch = np.stack([np.frombuffer(b, np.uint8) for b in blks])
+        return torch.from_numpy(batch).to(dev).flip(1)
 
 
 def _fallback_row(block: bytes, sentinel: str, verify: bool, device):
@@ -260,38 +262,41 @@ def _batched_forward(blocks: list[bytes], generation: str, verify: bool = True,
         first, blks = unit
         if blks is None:
             return ()
-        data2 = _reversed_on(dev, blks)
-        ones = torch.ones(len(blks), dtype=torch.bool)
-        # a ragged tail batch (rows the mesh does not divide) runs unsharded
-        m = mesh if mesh is not None and len(blks) % mesh.size == 0 else None
-        if impl == "v3":
-            if verify:
-                L, base, ok = bwt_blocks_certified(data2, sentinel, mesh=m)
+        with span("archon.container.dispatch"):
+            data2 = _reversed_on(dev, blks)
+            ones = torch.ones(len(blks), dtype=torch.bool)
+            # a ragged tail batch (rows the mesh does not divide) runs unsharded
+            m = mesh if mesh is not None and len(blks) % mesh.size == 0 else None
+            if impl == "v3":
+                if verify:
+                    L, base, ok = bwt_blocks_certified(data2, sentinel, mesh=m)
+                else:
+                    (L, base), ok = bwt_blocks(data2, sentinel, mesh=m), ones
+                resolved = ones
+            elif verify:
+                L, base, ok, resolved = bwt_blocks_micro_certified(data2, sentinel, mesh=m)
             else:
-                (L, base), ok = bwt_blocks(data2, sentinel, mesh=m), ones
-            resolved = ones
-        elif verify:
-            L, base, ok, resolved = bwt_blocks_micro_certified(data2, sentinel, mesh=m)
-        else:
-            L, base, resolved = bwt_blocks_micro(data2, sentinel, mesh=m)
-            ok = resolved
-        return first, blks, L, base, ok, resolved
+                L, base, resolved = bwt_blocks_micro(data2, sentinel, mesh=m)
+                ok = resolved
+            return first, blks, L, base, ok, resolved
+
+    def fallback(block):
+        with span("archon.container.fallback"):
+            return _fallback_row(block, sentinel, verify, dev)
 
     def collect(handle):
         if not handle:
             return [(np.zeros(0, np.uint8), 0)]
-        first, blks, L, base, ok, resolved = handle
-        resolved = resolved.cpu().numpy()
-        ok = ok.cpu().numpy()
-        if verify and not (ok | ~resolved).all():
-            bad = [first + t for t in np.nonzero(~ok & resolved)[0].tolist()]
-            raise AssertionError(f"BWT verification failed for block(s) {bad} (internal error)")
-        L = L.cpu().numpy()
-        base = base.cpu().numpy()
-        return [
-            (L[t], int(base[t])) if resolved[t] else _fallback_row(blks[t], sentinel, verify, dev)
-            for t in range(len(blks))
-        ]
+        with span("archon.container.collect"):
+            first, blks, L, base, ok, resolved = handle
+            resolved = resolved.cpu().numpy()
+            ok = ok.cpu().numpy()
+            if verify and not (ok | ~resolved).all():
+                bad = [first + t for t in np.nonzero(~ok & resolved)[0].tolist()]
+                raise AssertionError(f"BWT verification failed for block(s) {bad} (internal error)")
+            L = L.cpu().numpy()
+            base = base.cpu().numpy()
+            return [(L[t], int(base[t])) if resolved[t] else fallback(blks[t]) for t in range(len(blks))]
 
     out = []
     prev = None
@@ -391,12 +396,14 @@ def encode_file(
     their blocks pipeline through one device's queue)."""
     _check_args(generation, block_size)
     mesh = _dp_mesh(dp, device)
-    blocks = _split(data, block_size)
+    with span("archon.container.split"):
+        blocks = _split(data, block_size)
     results = _batched_forward(blocks, generation, verify, impl, device, mesh)
-    pieces = [_header(generation, block_size, pack)]
-    for frame in _frames(blocks, results, pack):
-        pieces += frame
-    return b"".join(pieces)
+    with span("archon.container.frames"):
+        pieces = [_header(generation, block_size, pack)]
+        for frame in _frames(blocks, results, pack):
+            pieces += frame
+        return b"".join(pieces)
 
 
 def _scan_complete_blocks(path, generation: str, block_size: int, expect_lens=None):

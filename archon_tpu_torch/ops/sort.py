@@ -40,7 +40,9 @@ tensors on the CPU; on a CUDA tensor it launches its kernel or raises.  To
 inspect a path without the kernels, give it CPU tensors or call the twins.
 ``merge_rows`` is the one-level form for rows that are two sorted runs each
 (the megablock's merge-split stages): K2 alone, once.
-``sort_tiles.launches`` and ``merge_level.launches`` count kernel launches.
+``sort_tiles.launches`` and ``merge_level.launches`` count kernel launches,
+``sort_tiles.bytes`` and ``merge_level.bytes`` the bytes those launches need
+(see ``sort_tiles`` and ``merge_level``).
 """
 
 from __future__ import annotations
@@ -154,9 +156,15 @@ def sort_operands_ref(keys, payloads=()) -> list:
 # ---------------------------------------------------------------- kernels
 
 
-def sort_tiles(keys: torch.Tensor) -> torch.Tensor:
+def sort_tiles(keys: torch.Tensor, real: int | None = None) -> torch.Tensor:
     """K1: the (C + 1, n_pad) tuple buffer of the (K, n) key matrix, n_pad a
-    multiple of ``TILE``, with every tile sorted by (keys..., index)."""
+    multiple of ``TILE``, with every tile sorted by (keys..., index).
+
+    A launch adds to ``sort_tiles.bytes`` what its ``real`` elements need (the
+    caller's operands, ``n`` by default; padding columns are not counted):
+    ``4 * (2C + 1)`` bytes each, the C carried keys read once and the (C + 1)
+    tuple words written once.  Keys past the C-th are read only where every
+    carried key ties; that depends on the data and is not counted."""
     keys = _key_matrix(keys)
     if keys.device.type == "cpu":
         return sort_tiles_ref(keys)
@@ -173,14 +181,21 @@ def sort_tiles(keys: torch.Tensor) -> torch.Tensor:
         rc = lib.archon_sort_tiles(keys.data_ptr(), n, K, C, out.data_ptr(), n_pad, stream)
     _launch_check(rc, "sort_tiles")
     sort_tiles.launches += 1
+    sort_tiles.bytes += 4 * (2 * C + 1) * (n if real is None else real)
     return out
 
 
-def merge_level(keys: torch.Tensor, tuples: torch.Tensor, run: int) -> torch.Tensor:
+def merge_level(keys: torch.Tensor, tuples: torch.Tensor, run: int,
+                real: int | None = None) -> torch.Tensor:
     """K2: merge each pair of sorted ``run``-runs of the tuple buffer (as
     left by ``sort_tiles`` or a previous level) into one sorted run of
     2*run.  On CUDA, ``2 * run`` and n_pad are multiples of ``MERGE_TILE``
-    (as ``sort_operands`` gives them)."""
+    (as ``sort_operands`` gives them).
+
+    A launch adds to ``merge_level.bytes`` what its ``real`` elements need
+    (``n`` by default, as in ``sort_tiles``): ``2 * 4 * (C + 1)`` bytes each,
+    the tuple read once and written once.  The split pass and the keys past
+    the C-th, read on ties, are not counted."""
     keys = _key_matrix(keys)
     tuples = _tuple_buffer(keys, tuples)
     if run < 1:
@@ -201,11 +216,14 @@ def merge_level(keys: torch.Tensor, tuples: torch.Tensor, run: int) -> torch.Ten
                                     stream)
     _launch_check(rc, "merge_level")
     merge_level.launches += 1
+    merge_level.bytes += 2 * 4 * (carried(K) + 1) * (n if real is None else real)
     return out
 
 
 sort_tiles.launches = 0
 merge_level.launches = 0
+sort_tiles.bytes = 0  # bytes the launches' real elements need, since import
+merge_level.bytes = 0
 
 
 def sort_operands(keys, payloads=()) -> list:
@@ -226,21 +244,22 @@ def sort_operands(keys, payloads=()) -> list:
             raise TypeError(f"keys must be int32, got {k.dtype}")
     if dev.type == "cpu":
         return sort_operands_ref(keys, payloads)
-    tuples = _sort_runs(torch.stack(keys), n)
+    tuples = _sort_runs(torch.stack(keys), n, n)
     C = tuples.shape[0] - 1
     perm = tuples[C, :n]
     return ([tuples[c, :n] for c in range(C)] + [k[perm] for k in keys[C:]]
             + [p[perm] for p in payloads])
 
 
-def _sort_runs(mat: torch.Tensor, width: int) -> torch.Tensor:
+def _sort_runs(mat: torch.Tensor, width: int, real: int) -> torch.Tensor:
     """K1 over the (K, m) key matrix on a CUDA device, then K2 levels until
     the sorted runs reach ``width``: the tuple buffer with every aligned
-    ``width``-run sorted (the whole of it when ``width >= m``)."""
-    tuples = sort_tiles(mat)
+    ``width``-run sorted (the whole of it when ``width >= m``).  ``real`` is
+    the count of the caller's elements among the m columns."""
+    tuples = sort_tiles(mat, real)
     run = TILE
     while run < min(width, tuples.shape[1]):
-        tuples = merge_level(mat, tuples, run)
+        tuples = merge_level(mat, tuples, run, real)
         run *= 2
     return tuples
 
@@ -309,7 +328,7 @@ def _sort_rows_kernels(keys: list, payloads: list) -> list:
         for j, k in enumerate(keys):
             mat[j, :, :n] = k
         mat = mat.view(len(keys), B * W)
-    tuples = _sort_runs(mat, W).view(-1, B, W)
+    tuples = _sort_runs(mat, W, B * n).view(-1, B, W)
     C = tuples.shape[0] - 1
     # buffer index of (row b, column j) is b * W + j: the operands' is b * n + j
     rows = torch.arange(B, dtype=torch.int32, device=dev)[:, None]

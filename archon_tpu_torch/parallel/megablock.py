@@ -51,6 +51,7 @@ import torch
 from ..core.doubling import SENT_SMALL
 from ..ops.scan import blocked_cummax
 from ..ops.sort import MERGE_TILE, merge_rows, sort_rows
+from ..utils.timing import span
 from .blocks import Mesh
 from .collectives import collectives
 
@@ -116,20 +117,22 @@ def _merge_split_sort(arrays, num_keys: int, ns: int, sid, coll):
     (include a unique tie-break operand among the keys).  Returns arrays in
     global sorted order: shard i holds global slots [i*S, (i+1)*S).
     """
-    arrays = sort_rows(arrays[:num_keys], arrays[num_keys:])
+    with span("archon.megablock.local_sort"):
+        arrays = sort_rows(arrays[:num_keys], arrays[num_keys:])
     S = arrays[0].shape[1]
     stage = _stage_merge if S % MERGE_TILE == 0 else _stage_sort
     for k_bit, m in _bitonic_stages(ns):
-        perm = _pairs(ns, m)
-        partner = [coll.ppermute(a, perm) for a in arrays]
-        both = [torch.cat([a, b], dim=1) for a, b in zip(arrays, partner)]
-        del partner
-        merged = stage(both, num_keys)
-        del both
-        # min half goes to the lower shard of the pair in an ascending
-        # region ((sid & k_bit) == 0), to the higher shard otherwise
-        keep_low = ((sid & m) == 0) == ((sid & k_bit) == 0)
-        arrays = [torch.where(keep_low, mg[:, :S], mg[:, S:]) for mg in merged]
+        with span("archon.megablock.stage"):
+            perm = _pairs(ns, m)
+            partner = [coll.ppermute(a, perm) for a in arrays]
+            both = [torch.cat([a, b], dim=1) for a, b in zip(arrays, partner)]
+            del partner
+            merged = stage(both, num_keys)
+            del both
+            # min half goes to the lower shard of the pair in an ascending
+            # region ((sid & k_bit) == 0), to the higher shard otherwise
+            keep_low = ((sid & m) == 0) == ((sid & k_bit) == 0)
+            arrays = [torch.where(keep_low, mg[:, :S], mg[:, S:]) for mg in merged]
     return arrays
 
 
@@ -328,8 +331,14 @@ def _sharded_ranks(data, mesh: Mesh, sentinel: str):
     S = n // ns
 
     coll = collectives(mesh, AXIS)
-    data_dev = coll.shard(torch.from_numpy(arr))
-    prev_rank, prev_na = _make_init(mesh, S, n, sentinel)(data_dev)
+
+    def resolved(na, k: int) -> bool:
+        """No round is left: context k covers the text, or the surviving-tie
+        count reads 0 (one host read)."""
+        if k >= 4 * n:
+            return True
+        stats.host_syncs += 1
+        return int(na) == 0
 
     # the JAX loop enqueues round k before it reads round k/4's surviving-tie
     # count, to hide the read behind device work, and so always runs one round
@@ -337,15 +346,18 @@ def _sharded_ranks(data, mesh: Mesh, sentinel: str):
     # card tens to hundreds to run, so the read comes first: the card idles
     # for one enqueue a round and no round is wasted.  The ranks returned are
     # those of the round whose count was 0 either way.
-    round_fn = _make_round_dyn(mesh, S, n, sentinel)
     k = 3
-    while k < 4 * n:
-        stats.host_syncs += 1
-        if int(prev_na) == 0:
-            break
-        prev_rank, prev_na = round_fn(prev_rank, k)
-        stats.rounds += 1
-        k *= 4
+    with span("archon.megablock.init"):
+        data_dev = coll.shard(torch.from_numpy(arr))
+        prev_rank, prev_na = _make_init(mesh, S, n, sentinel)(data_dev)
+        done = resolved(prev_na, k)
+    round_fn = _make_round_dyn(mesh, S, n, sentinel)
+    while not done:
+        with span("archon.megablock.round"):
+            prev_rank, prev_na = round_fn(prev_rank, k)
+            stats.rounds += 1
+            k *= 4
+            done = resolved(prev_na, k)
     return prev_rank, data_dev, S, n
 
 
@@ -356,8 +368,9 @@ def bwt_megablock(data, mesh: Mesh, sentinel: str = SENT_SMALL):
     mesh: ``L_shards.reshape(-1)`` is L), ready for the sharded entropy stage
     (parallel.megapipe)."""
     rank, data_dev, S, n = _sharded_ranks(data, mesh, sentinel)
-    L, base = _make_emit(mesh, S, n)(rank, data_dev)
-    return L, int(base)
+    with span("archon.megablock.emit"):
+        L, base = _make_emit(mesh, S, n)(rank, data_dev)
+        return L, int(base)
 
 
 def suffix_array_sharded(data, mesh: Mesh, sentinel: str = SENT_SMALL) -> np.ndarray:

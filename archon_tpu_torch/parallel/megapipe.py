@@ -39,6 +39,7 @@ from .. import native
 from ..core.doubling import SENT_LARGE, SENT_SMALL
 from ..entropy.huffman import SymbolCode, build_encoder_byte, build_encoder_var
 from ..ops.bitpack import pack_codes_sized
+from ..utils.timing import span
 from .blocks import Mesh
 from .collectives import collectives
 from .megablock import AXIS, _make_emit, _rank_mesh, _sharded_ranks
@@ -109,44 +110,47 @@ def encode_megablock(
     view = arr[::-1]
 
     rank, data_dev, S, n = _sharded_ranks(view, mesh, sentinel)
-    L_dev, base = _make_emit(mesh, S, n)(rank, data_dev)
-    del rank, data_dev
-    base = int(base)
+    with span("archon.megablock.emit"):
+        L_dev, base = _make_emit(mesh, S, n)(rank, data_dev)
+        del rank, data_dev
+        base = int(base)
 
-    hist = _make_hist(mesh)(L_dev).cpu().numpy()
-    if coder == "var":
-        codes = build_encoder_var(hist)
-    else:
-        codes = build_encoder_byte()
-    values, lengths = _codes_arrays(codes)
-    max_len = int(lengths.max()) if lengths.size else 1
-    max_len = max(max_len, 1)
+    with span("archon.megablock.hist"):
+        hist = _make_hist(mesh)(L_dev).cpu().numpy()
+        if coder == "var":
+            codes = build_encoder_var(hist)
+        else:
+            codes = build_encoder_byte()
+        values, lengths = _codes_arrays(codes)
+        max_len = int(lengths.max()) if lengths.size else 1
+        max_len = max(max_len, 1)
 
-    dev = L_dev.device
-    words2, totals = _make_pack(mesh, max_len)(
-        L_dev, torch.from_numpy(values.astype(np.int64)).to(dev), torch.from_numpy(lengths).to(dev)
-    )
-    coll = collectives(mesh, AXIS)
-    totals = coll.all_gather(totals)[0].cpu().numpy()
-    # only the words that hold bits leave the device, and as 32-bit ones: the
-    # words are int64 holding u32 values, and the cast to int32 keeps their
-    # low 32 bits, which the host then reads as u32
-    used = max((int(totals.max()) + 31) // 32, 1)
-    words2 = coll.all_gather(words2[:, :used].to(torch.int32))[0].cpu().numpy().view(np.uint32)
+    with span("archon.megablock.pack"):
+        dev = L_dev.device
+        words2, totals = _make_pack(mesh, max_len)(
+            L_dev, torch.from_numpy(values.astype(np.int64)).to(dev), torch.from_numpy(lengths).to(dev)
+        )
+        coll = collectives(mesh, AXIS)
+        totals = coll.all_gather(totals)[0].cpu().numpy()
+        # only the words that hold bits leave the device, and as 32-bit ones: the
+        # words are int64 holding u32 values, and the cast to int32 keeps their
+        # low 32 bits, which the host then reads as u32
+        used = max((int(totals.max()) + 31) // 32, 1)
+        words2 = coll.all_gather(words2[:, :used].to(torch.int32))[0].cpu().numpy().view(np.uint32)
 
-    out = [
-        MAGIC,
-        struct.pack(
-            "<BBHQII", GENERATIONS[generation], CODERS[coder], ns, n, base, pad
-        ),
-        hist.astype(np.uint32).tobytes(),
-    ]
-    for s in range(ns):
-        nbits = int(totals[s])
-        nbytes = (nbits + 7) // 8
-        out.append(struct.pack("<I", nbits))
-        out.append(words2[s].tobytes()[:nbytes])
-    return b"".join(out)
+        out = [
+            MAGIC,
+            struct.pack(
+                "<BBHQII", GENERATIONS[generation], CODERS[coder], ns, n, base, pad
+            ),
+            hist.astype(np.uint32).tobytes(),
+        ]
+        for s in range(ns):
+            nbits = int(totals[s])
+            nbytes = (nbits + 7) // 8
+            out.append(struct.pack("<I", nbits))
+            out.append(words2[s].tobytes()[:nbytes])
+        return b"".join(out)
 
 
 def _encode_on_rank(rank: int, world: int, data: bytes, device_type: str, generation: str,

@@ -6,7 +6,8 @@ plus derived metrics (a4 printime, a4/src/main.c:9-14; a5's per-stage
 "Stage k" report and "Linear coef" ms/MB, a5/src/archon.c:161-192; a6's
 transform-vs-IO split, a6/src/main.c:160-174).  ``StageTimer`` reproduces
 that reporting; ``profile_trace`` wraps ``torch.profiler`` for a trace of
-the host operators and the device kernels.
+the host operators and the device kernels, and ``span`` names the program's
+own steps inside that trace.
 """
 
 from __future__ import annotations
@@ -45,6 +46,20 @@ class StageTimer:
             mb = self.total_bytes / 1e6
             out(f"Linear coef: {total * 1e3 / max(mb, 1e-9):.2f} ms/MB "
                 f"({mb / max(total, 1e-9):.1f} MB/s)")
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A named range of the program's own steps (``archon.<layer>.<step>``)
+    in the ``torch.profiler`` trace: ``record_function(name)`` while a
+    profiler records, else one shared no-op context, so a span costs one
+    check when nothing traces.  Open it with ``with`` inside a function's
+    body, on the thread that drives the device."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager

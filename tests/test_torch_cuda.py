@@ -131,6 +131,32 @@ def test_sort_rows_on_card_matches_twin(cuda_device, B, n, nk, hi):
     assert all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want))
 
 
+def test_sort_byte_counters_count_real_elements(cuda_device):
+    """``sort_tiles.bytes`` and ``merge_level.bytes`` grow by what each
+    launch needs for the caller's B * n elements, never the padded width:
+    4 (2C + 1) bytes an element for K1, 2 * 4 (C + 1) for each K2 level; one
+    ``sort_rows`` call (rows padded from 20,000 to 32,768 columns) and one
+    ``merge_rows`` call, at 2 and at 5 keys (C = 2 and 4)."""
+    rng = np.random.default_rng(11)
+    B, n = 3, 20_000
+    w = 2 * tsort.MERGE_TILE
+    for nk in (2, 5):
+        C = tsort.carried(nk)
+        keys = [torch.from_numpy(rng.integers(0, 50, (B, n)).astype(np.int32)).to(cuda_device)
+                for _ in range(nk)]
+        bytes1, bytes2 = tsort.sort_tiles.bytes, tsort.merge_level.bytes
+        tsort.sort_rows(keys, [keys[0]])
+        levels = (tsort.row_width(B, n) // tsort.TILE - 1).bit_length()
+        assert tsort.sort_tiles.bytes - bytes1 == 4 * (2 * C + 1) * B * n
+        assert tsort.merge_level.bytes - bytes2 == levels * 2 * 4 * (C + 1) * B * n
+        runs = [torch.from_numpy(np.sort(rng.integers(0, 50, (B, 2, w // 2)), axis=2).reshape(B, w)
+                                 .astype(np.int32)).to(cuda_device) for _ in range(nk)]
+        bytes1, bytes2 = tsort.sort_tiles.bytes, tsort.merge_level.bytes
+        tsort.merge_rows(runs, [])
+        assert tsort.sort_tiles.bytes == bytes1
+        assert tsort.merge_level.bytes - bytes2 == 2 * 4 * (C + 1) * B * w
+
+
 @pytest.mark.parametrize("generation", ["a4", "a7"])
 def test_batched_containers_on_card_match_stream(cuda_device, generation):
     """micro (with a row through the fallback) and v3 write the stream's

@@ -39,7 +39,8 @@ the last key to the first, then gathers).  A wrapper takes its twin only for
 tensors on the CPU; on a CUDA tensor it launches its kernel or raises.  To
 inspect a path without the kernels, give it CPU tensors or call the twins.
 ``merge_rows`` is the one-level form for rows that are two sorted runs each
-(the megablock's merge-split stages): K2 alone, once.
+(the megablock's merge-split stages): K2 alone, once, each run padded to a
+multiple of ``MERGE_TILE // 2`` the way ``sort_rows`` pads a row.
 ``sort_tiles.launches`` and ``merge_level.launches`` count kernel launches,
 ``sort_tiles.bytes`` and ``merge_level.bytes`` the bytes those launches need
 (see ``sort_tiles`` and ``merge_level``).
@@ -338,13 +339,16 @@ def _sort_rows_kernels(keys: list, payloads: list) -> list:
 
 
 def merge_rows(keys, payloads=()) -> list:
-    """``sort_rows`` for (B, 2 * run) operands whose rows are each two runs
+    """``sort_rows`` for (B, 2S) operands whose rows are each two runs of S
     already sorted by ``keys``: the same result (a merge of sorted runs by
     (keys..., index) is the stable sort of the row) by ONE K2 level for all
-    rows and no K1.  The sharded megablock's merge-split stages are this
-    shape: ``[mine, partner]``, both sorted.  On CUDA the row width must be a
-    multiple of ``MERGE_TILE``; rows that are not two sorted runs come out
-    unsorted, unchecked."""
+    rows and no K1, at any S.  The sharded megablock's merge-split stages are
+    this shape: ``[mine, partner]``, both sorted.  Rows that are not two
+    sorted runs come out unsorted, unchecked.
+
+    ``merge_rows.calls`` counts the calls that reach the kernels' layout and
+    ``merge_rows.pad`` the padding tuples they added (see
+    ``_merge_tuples``)."""
     keys, payloads = list(keys), list(payloads)
     if not keys:
         raise ValueError("merge_rows needs at least one key")
@@ -364,18 +368,53 @@ def merge_rows(keys, payloads=()) -> list:
     return _merge_rows_kernels(keys, payloads)
 
 
+merge_rows.calls = 0
+merge_rows.pad = 0
+# bumped through the function's own attribute dict, not its global name: the
+# traced benchmark puts a wrapper, which has no counters, in place of that name
+_merge_rows_counts = merge_rows.__dict__
+
+
+def _merge_tuples(mat: torch.Tensor, B: int, S: int) -> tuple[torch.Tensor, int]:
+    """The (C + 1, B * 2 * S') tuple buffer of the (K, B * 2S) key matrix of
+    rows ``[run_0, run_1]``, and S'.  Each run takes S' = S rounded up to a
+    multiple of ``MERGE_TILE // 2`` columns, so that K2's run pairs (run S')
+    are the rows: layout (C + 1, B, 2, S').  A real tuple carries its column
+    in ``mat`` as its index; each run's S' - S padding tuples carry
+    ``PAD_KEY`` in every key and indices from B * 2S up, ascending, so each
+    padded run stays sorted and the first 2S outputs of a merged row are its
+    real tuples."""
+    C = carried(mat.shape[0])
+    dev = mat.device
+    Sp = _padded_width(S, MERGE_TILE // 2)
+    pad = Sp - S
+    if B * 2 * Sp >= MAX_WIDTH:
+        raise ValueError("merge_rows: the batch's padded width must be below 2^30")
+    tuples = torch.empty((C + 1, B, 2, Sp), dtype=torch.int32, device=dev)
+    tuples[:C, :, :, :S] = mat[:C].view(C, B, 2, S)
+    # index of (row b, run h, column j): (2b + h) * S + j, one pass into the strided view
+    torch.add(torch.arange(0, B * 2 * S, S, dtype=torch.int32, device=dev).view(B, 2, 1),
+              torch.arange(S, dtype=torch.int32, device=dev), out=tuples[C, :, :, :S])
+    if pad:
+        tuples[:C, :, :, S:] = PAD_KEY
+        tuples[C, :, :, S:] = torch.arange(B * 2 * S, B * 2 * Sp, dtype=torch.int32,
+                                           device=dev).view(B, 2, pad)
+    return tuples.view(C + 1, B * 2 * Sp), Sp
+
+
 def _merge_rows_kernels(keys: list, payloads: list) -> list:
     """``merge_rows`` through K2 (on CPU tensors, through its twin: the tests
     hold the layout that way)."""
-    (B, w), dev = keys[0].shape, keys[0].device
-    if w % MERGE_TILE:
-        raise ValueError(f"merge_rows: the row width must be a multiple of {MERGE_TILE}")
+    B, w = keys[0].shape
     if B * w >= MAX_WIDTH:
         raise ValueError("merge_rows: the batch's width must be below 2^30")
+    S = w // 2
     mat = torch.stack(keys).view(len(keys), B * w)
-    C = carried(len(keys))
-    index = torch.arange(B * w, dtype=torch.int32, device=dev)
-    tuples = merge_level(mat, torch.cat([mat[:C], index[None]]), w // 2).view(-1, B, w)
-    perm = tuples[C]  # rows lie end to end unpadded: buffer index == operand index
+    tuples, Sp = _merge_tuples(mat, B, S)
+    C = tuples.shape[0] - 1
+    tuples = merge_level(mat, tuples, Sp).view(C + 1, B, 2 * Sp)[:, :, :w]
+    _merge_rows_counts["calls"] += 1
+    _merge_rows_counts["pad"] += B * 2 * (Sp - S)
+    perm = tuples[C]  # a real tuple's index is its operand's column in mat
     return ([tuples[c] for c in range(C)] + [k.reshape(-1)[perm] for k in keys[C:]]
             + [p.reshape(-1)[perm] for p in payloads])

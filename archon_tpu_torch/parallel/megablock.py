@@ -29,8 +29,8 @@ launches for all shards at once, and on CPU tensors their plain twins.
 Differences from the JAX program, none of which changes a value:
 
 - a merge-split stage sorts ``[mine, partner]``, two runs that are already
-  sorted; where the shard size allows (a multiple of ``MERGE_TILE``) the
-  stage is ONE merge level (``merge_rows``) instead of a full re-sort;
+  sorted, so at every shard size the stage is ONE merge level
+  (``merge_rows``) instead of a full re-sort;
 - nothing is compiled per k, so ``_rotate_dyn`` is one ``ppermute`` at the
   distance asked for, and the ``_make_*`` functions return plain closures,
   not cached programs;
@@ -50,7 +50,7 @@ import torch
 
 from ..core.doubling import SENT_SMALL
 from ..ops.scan import blocked_cummax
-from ..ops.sort import MERGE_TILE, merge_rows, sort_rows
+from ..ops.sort import merge_rows, sort_rows
 from ..utils.timing import span
 from .blocks import Mesh
 from .collectives import collectives
@@ -97,12 +97,6 @@ def _bitonic_stages(ns: int):
     return stages
 
 
-def _stage_sort(both, num_keys: int):
-    """A merge-split stage in the JAX program's form: re-sort the 2S-wide
-    rows ``[mine, partner]``."""
-    return sort_rows(both[:num_keys], both[num_keys:])
-
-
 def _stage_merge(both, num_keys: int):
     """A merge-split stage as what it is: both halves of ``[mine, partner]``
     are sorted, so one merge level gives the sorted row."""
@@ -120,14 +114,13 @@ def _merge_split_sort(arrays, num_keys: int, ns: int, sid, coll):
     with span("archon.megablock.local_sort"):
         arrays = sort_rows(arrays[:num_keys], arrays[num_keys:])
     S = arrays[0].shape[1]
-    stage = _stage_merge if S % MERGE_TILE == 0 else _stage_sort
     for k_bit, m in _bitonic_stages(ns):
         with span("archon.megablock.stage"):
             perm = _pairs(ns, m)
             partner = [coll.ppermute(a, perm) for a in arrays]
             both = [torch.cat([a, b], dim=1) for a, b in zip(arrays, partner)]
             del partner
-            merged = stage(both, num_keys)
+            merged = _stage_merge(both, num_keys)
             del both
             # min half goes to the lower shard of the pair in an ascending
             # region ((sid & k_bit) == 0), to the higher shard otherwise

@@ -67,7 +67,8 @@ Phases, each printing its own lines; any failure exits non-zero:
     a 4 MiB text block (``sort_rows`` at (8, S) and the merge-split stages'
     ``merge_rows`` at (8, 2S); 5, 2 and 1 keys) held to its twins (K1, every
     K2 level, the whole sort; a stage as one merge level against the same
-    stage re-sorted) and timed beside the stable ``torch.sort`` chain;
+    stage re-sorted) and timed beside the stable ``torch.sort`` chain; the
+    stages of a 10^6-byte megablock (S = 125,000, runs padded) held alike;
     ``bwt_megablock`` of that block equal to ``bwt_v3``, and of 2^20 zeros
     and fibonacci; then 64 MiB as ONE megablock: init, each round, emit,
     hist and pack timed apart (device ms by CUDA events, and the host's
@@ -1240,9 +1241,10 @@ def _hold_rows_sort(name, keys, payloads, levels=True):
 
 def _hold_stage_merge(name, keys, payloads, level=True):
     """A merge-split stage of the megablock (``merge_rows``: rows of two
-    sorted runs, one K2 level) against K2's twin on the same tuples, against
-    the same stage re-sorted by ``sort_rows`` (bit for bit) and against
-    ``sort_rows_ref``; one K2 launch and no K1."""
+    sorted runs, each padded to a multiple of 1024 columns, one K2 level)
+    against K2's twin on the same tuples, against the same stage re-sorted
+    by ``sort_rows`` (bit for bit) and against ``sort_rows_ref``; one K2
+    launch and no K1."""
     import torch
 
     from archon_tpu_torch.ops import sort as S
@@ -1251,13 +1253,12 @@ def _hold_stage_merge(name, keys, payloads, level=True):
     e2 = 0
     if level:
         mat = torch.stack([k.contiguous() for k in keys]).view(len(keys), B * w)
-        C = S.carried(len(keys))
-        index = torch.arange(B * w, dtype=torch.int32, device=mat.device)
-        tuples = torch.cat([mat[:C], index[None]])
-        e2 = _max_err(S.merge_level(mat, tuples, w // 2), S.merge_level_ref(mat, tuples, w // 2))
+        tuples, run = S._merge_tuples(mat, B, w // 2)
+        e2 = _max_err(S.merge_level(mat, tuples, run), S.merge_level_ref(mat, tuples, run))
     S.sort_tiles.launches = S.merge_level.launches = 0
+    pad = S.merge_rows.pad
     got = S.merge_rows(keys, payloads)
-    k1, k2 = S.sort_tiles.launches, S.merge_level.launches
+    k1, k2, pad = S.sort_tiles.launches, S.merge_level.launches, S.merge_rows.pad - pad
     resorted = S.sort_rows(keys, payloads)
     want = S.sort_rows_ref(keys, payloads)
     e3 = max(_max_err(g, x) for g, x in zip(got, want))
@@ -1265,8 +1266,8 @@ def _hold_stage_merge(name, keys, payloads, level=True):
     torch.cuda.synchronize()
     KERNEL_ERR["merge_level"] = max(KERNEL_ERR["merge_level"], e2, e3, e4)
     print(f"[megablock] {name}: ({B}, {w}) keys={len(keys)} payloads={len(payloads)} one merge "
-          f"level at run {w // 2}: launches K1 {k1}, K2 {k2}; against K2's twin {e2}, against "
-          f"sort_rows_ref {e3}, against the stage re-sorted by sort_rows {e4}")
+          f"level, {pad} padding tuples: launches K1 {k1}, K2 {k2}; against K2's twin {e2}, "
+          f"against sort_rows_ref {e3}, against the stage re-sorted by sort_rows {e4}")
     if e2 or e3 or e4 or (k1, k2) != (0, 1):
         raise AssertionError(f"the one-level stage disagrees or launched otherwise: {name}")
 
@@ -1337,6 +1338,12 @@ def phase_megablock(text: bytes):
               f"{resort:.3f} (torch.sort chain {schain:.3f})")
     del local, stages
 
+    # ---- a ragged shard size: 10^6 B, S = 125,000 (S mod 1024 = 72), each stage pads its runs
+    ragged = np.frombuffer(text[:1_000_000], np.uint8)
+    for keys, payloads in _captured_sorts((mb,), lambda: mb.bwt_megablock(ragged, mesh, "small"),
+                                          attr="merge_rows"):
+        _hold_stage_merge(f"10^6 B block, stage, {len(keys)} keys", keys, payloads)
+
     want, v3_ms, _ = _block_call("megablock", "4 MiB text block, bwt_v3 (for comparison)",
                                  lambda: bwt_v3(arr, "small"))
     mb.stats.reset()
@@ -1346,7 +1353,7 @@ def phase_megablock(text: bytes):
     _same_bwt("bwt_megablock, 4 MiB text block", (L.reshape(-1), base), want)
     mega_ms = _events_ms(lambda: mb.bwt_megablock(block, mesh, "small"), 3)
     real_stage = mb._stage_merge
-    mb._stage_merge = mb._stage_sort
+    mb._stage_merge = lambda both, nk: S.sort_rows(both[:nk], both[nk:])
     try:
         got = mb.bwt_megablock(block, mesh, "small")
         resort_ms = _events_ms(lambda: mb.bwt_megablock(block, mesh, "small"), 3)

@@ -289,11 +289,13 @@ def _card_mesh(cuda_device, ns=8):
     return make_mesh({"sp": ns}, devices=[cuda_device] * ns)
 
 
-def test_megablock_sort_shapes_match_twins_on_card(cuda_device, monkeypatch):
-    """Every sort a 1 MiB ``bwt_megablock`` of 8 shards launches (5, 2 and 1
-    keys; ``sort_rows`` at (8, S), the stages' ``merge_rows`` at (8, 2S))
-    against ``sort_rows_ref``; a stage as one K2 level against the same
-    stage re-sorted, bit for bit."""
+@pytest.mark.parametrize("n", [1 << 20, 1_000_000], ids=["aligned", "ragged"])
+def test_megablock_sort_shapes_match_twins_on_card(cuda_device, monkeypatch, n):
+    """Every sort a ``bwt_megablock`` of 8 shards launches (5, 2 and 1 keys;
+    ``sort_rows`` at (8, S), the stages' ``merge_rows`` at (8, 2S)) against
+    ``sort_rows_ref``; a stage as one K2 level against the same stage
+    re-sorted, bit for bit.  At 1 MiB S is a multiple of 1024; at 10^6 B
+    S = 125,000 is not (S mod 1024 = 72), so each stage pads its runs."""
     from archon_tpu_torch.parallel import megablock as mb
 
     seen = {"sort_rows": [], "merge_rows": []}
@@ -301,13 +303,13 @@ def test_megablock_sort_shapes_match_twins_on_card(cuda_device, monkeypatch):
         real = getattr(mb, name)
         monkeypatch.setattr(mb, name, lambda k, p=(), name=name, real=real: seen[name].append(
             (list(k), list(p))) or real(k, p))
-    block = np.frombuffer(text_like(1 << 20, 6), np.uint8)
+    block = np.frombuffer(text_like(n, 6), np.uint8)
     L, base = mb.bwt_megablock(block, _card_mesh(cuda_device), "small")
     Lw, bw = fast2.bwt_v3(torch.from_numpy(block.copy()).to(cuda_device), "small")
     assert torch.equal(L.reshape(-1), Lw) and base == bw
     monkeypatch.undo()
     shapes = lambda calls: {(len(k), len(p), tuple(k[0].shape)) for k, p in calls}
-    S = (1 << 20) // 8
+    S = n // 8
     assert shapes(seen["sort_rows"]) == {(5, 0, (8, S)), (2, 0, (8, S)), (1, 1, (8, S))}
     assert shapes(seen["merge_rows"]) == {(5, 0, (8, 2 * S)), (2, 0, (8, 2 * S)), (1, 1, (8, 2 * S))}
     for keys, payloads in seen["sort_rows"][:6]:
@@ -319,6 +321,35 @@ def test_megablock_sort_shapes_match_twins_on_card(cuda_device, monkeypatch):
         assert (tsort.sort_tiles.launches, tsort.merge_level.launches) == (before[0], before[1] + 1)
         assert all(torch.equal(g, w) for g, w in zip(got, tsort.sort_rows_ref(keys, payloads)))
         assert all(torch.equal(g, w) for g, w in zip(got, tsort.sort_rows(keys, payloads)))
+
+
+@pytest.mark.parametrize("nk,npay", [(5, 0), (1, 1)], ids=["5keys", "1key-payload"])
+def test_merge_rows_at_the_enwik8_stage_shape(cuda_device, nk, npay):
+    """One merge-split stage of a 10^8-byte megablock over 8 shards:
+    ``merge_rows`` at (8, 2 x 12,500,000), each run padded by 992 tuples, is
+    ONE K2 launch and no K1, and equals the stage re-sorted by ``sort_rows``
+    bit for bit; real all-0x7FFFFFFF tuples are planted in both runs."""
+    B, S = 8, 12_500_000
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    keys = [torch.randint(0, 3 if nk > 1 else 1000, (2 * B, S), generator=g, dtype=torch.int32,
+                          device=cuda_device) for _ in range(min(nk, 4))]
+    if nk == 5:  # the megablock's fifth key is a position: unique
+        keys.append(torch.randperm(2 * B * S, generator=g, device=cuda_device)
+                    .to(torch.int32).view(2 * B, S))
+    for k in keys:
+        k[:, 7::9973] = tsort.PAD_KEY
+    payloads = [torch.randint(0, 256, (2 * B, S), generator=g, device=cuda_device,
+                              dtype=torch.uint8) for _ in range(npay)]
+    runs = tsort.sort_rows(keys, payloads)  # row 2b and 2b + 1: the two runs of stage row b
+    del keys, payloads
+    rows = [r.reshape(B, 2 * S) for r in runs]
+    del runs
+    before = (tsort.sort_tiles.launches, tsort.merge_level.launches, tsort.merge_rows.pad)
+    got = tsort.merge_rows(rows[:nk], rows[nk:])
+    after = (tsort.sort_tiles.launches, tsort.merge_level.launches, tsort.merge_rows.pad)
+    assert after == (before[0], before[1] + 1, before[2] + B * 2 * 992)
+    want = tsort.sort_rows(rows[:nk], rows[nk:])
+    assert all(x.dtype == w.dtype and torch.equal(x, w) for x, w in zip(got, want))
 
 
 @pytest.mark.parametrize("sentinel", ["small", "large"])

@@ -45,10 +45,10 @@ def test_network_specs_equal_the_jax_lists(ns):
 
 
 @pytest.mark.parametrize("ns", [2, 8])
-@pytest.mark.parametrize("width", [64, tsort.MERGE_TILE], ids=["stage_sort", "stage_merge"])
+@pytest.mark.parametrize("width", [64, tsort.MERGE_TILE], ids=["ragged", "aligned"])
 def test_merge_split_sort_is_a_global_stable_sort(ns, width):
     """(keys..., pos) with many ties in the keys, and a payload; at a shard
-    size that takes the re-sort stage and at one that takes the merge level."""
+    size whose stages pad their runs and at one whose stages need no pad."""
     n = ns * width
     rng = np.random.default_rng(ns)
     keys = [rng.integers(0, 3, n).astype(np.int32) for _ in range(2)]
@@ -165,41 +165,98 @@ def test_sharded_bwt_emission():
 
 
 def test_merge_level_stages_equal_the_resort_stages(monkeypatch):
-    """At a shard size that takes ``merge_rows`` (one merge level a stage):
-    the same suffix array as with every stage re-sorted, and the golden
+    """At a ragged shard size (S = 1064, so each stage pads both runs to
+    1024 columns more): every stage as one merge level in the kernels'
+    layout (``_merge_rows_kernels``, on K2's twin) gives the same suffix
+    array as with every stage re-sorted by ``sort_rows``, and the golden
     model's; and the loop counts its rounds and host reads (one read after
     the init and one after each round: no round runs past resolution)."""
-    arr = np.frombuffer(text_like(2 * tsort.MERGE_TILE, seed=8), np.uint8)
+    S_ragged = 1064
+    arr = np.frombuffer(text_like(2 * S_ragged, seed=8), np.uint8)
     mesh = _mesh(2)
-    taken = []
-    real = mb._stage_merge
-    monkeypatch.setattr(mb, "_stage_merge", lambda both, nk: taken.append(1) or real(both, nk))
+    monkeypatch.setattr(mb, "merge_rows", tsort._merge_rows_kernels)
+    calls, pad = tsort.merge_rows.calls, tsort.merge_rows.pad
     mb.stats.reset()
     got = mb.suffix_array_sharded(arr, mesh, "large")
-    assert taken and mb.stats.host_syncs == mb.stats.rounds + 1 >= 2
-    monkeypatch.setattr(mb, "_stage_merge", mb._stage_sort)
+    staged = tsort.merge_rows.calls - calls
+    assert staged >= 3 and mb.stats.host_syncs == mb.stats.rounds + 1 >= 2
+    assert tsort.merge_rows.pad - pad == staged * 2 * 2 * (2048 - S_ragged)
+    monkeypatch.setattr(mb, "_stage_merge", lambda both, nk: tsort.sort_rows(both[:nk], both[nk:]))
     assert got.tolist() == mb.suffix_array_sharded(arr, mesh, "large").tolist()
+    assert tsort.merge_rows.calls - calls == staged
     assert got.tolist() == golden.suffix_array(arr, "large").tolist()
 
 
-def test_merge_rows_layout_through_the_merge_level_twin():
-    """``merge_rows``' buffer layout (rows end to end, one K2 level at
-    ``run`` = half a row), driven through K2's twin on CPU tensors, against
-    the stable sort of each row; five keys, so one is read by index."""
-    rng = np.random.default_rng(3)
-    B, w = 4, 2 * tsort.MERGE_TILE
-    keys = [torch.from_numpy(rng.integers(0, 2, (B, w)).astype(np.int32)) for _ in range(4)]
-    keys.append(torch.from_numpy(np.stack([rng.permutation(w) for _ in range(B)]).astype(np.int32)))
-    pay = [torch.from_numpy(rng.integers(0, 256, (B, w), dtype=np.uint8))]
-    halves = [tsort.sort_rows_ref([k[:, h : h + w // 2] for k in keys], [pay[0][:, h : h + w // 2]])
-              for h in (0, w // 2)]
+def _two_run_rows(rng, B, S, nk):
+    """(keys, payloads) of B rows of two runs of S, each run sorted by the
+    nk keys: keys 0..3 with many ties, a fifth key a permutation, and real
+    all-0x7FFFFFFF tuples planted in both runs; one uint8 payload."""
+    keys = [rng.integers(0, 3, (B, 2 * S)).astype(np.int32) for _ in range(min(nk, 4))]
+    if nk == 5:
+        keys.append(np.stack([rng.permutation(2 * S) for _ in range(B)]).astype(np.int32))
+    for k in keys:
+        k[:, 5::97] = tsort.PAD_KEY
+        k[:, S + 3::89] = tsort.PAD_KEY
+    keys = [torch.from_numpy(k) for k in keys]
+    pay = torch.from_numpy(rng.integers(0, 256, (B, 2 * S), dtype=np.uint8))
+    halves = [tsort.sort_rows_ref([k[:, h : h + S] for k in keys], [pay[:, h : h + S]])
+              for h in (0, S)]
     both = [torch.cat([a, b], dim=1) for a, b in zip(*halves)]
-    got = tsort._merge_rows_kernels(both[:5], both[5:])
-    want = tsort.sort_rows_ref(both[:5], both[5:])
-    assert all(torch.equal(g, x) for g, x in zip(got, want))
-    assert all(torch.equal(g, x) for g, x in zip(tsort.merge_rows(both[:5], both[5:]), want))
-    with pytest.raises(ValueError, match="multiple of"):
-        tsort._merge_rows_kernels([k[:, :100] for k in both[:5]], [])
+    return both[:nk], both[nk:]
+
+
+def _assert_runs_in_kernel_order(keys):
+    """Each padded run of ``_merge_tuples``' buffer is sorted in K2's own
+    order, which the twin does not share (it places padding last by its
+    index alone): the carried keys, then for two real tuples the keys past
+    the C-th and the index, for a padding tuple the index (``rest_less``)."""
+    (B, w), nk = keys[0].shape, len(keys)
+    n = B * w
+    mat = torch.stack(keys).view(nk, n)
+    tuples, Sp = tsort._merge_tuples(mat, B, w // 2)
+    C = tuples.shape[0] - 1
+    for run in tuples.view(C + 1, B * 2, Sp).permute(1, 0, 2).numpy().astype(np.int64):
+        idx = run[C]
+        real = idx < n
+        rest = [np.where(real, mat[c].numpy().astype(np.int64)[np.minimum(idx, n - 1)], 1 << 40)
+                for c in range(C, nk)]
+        order = np.lexsort((idx, *reversed(rest), *reversed(list(run[:C]))))
+        assert order.tolist() == list(range(Sp))
+        assert real[: w // 2].all() and not real[w // 2 :].any()
+
+
+@pytest.mark.parametrize("nk,S", [(5, tsort.MERGE_TILE), (5, 1500), (3, 1500), (1, 37)],
+                         ids=["5keys-aligned", "5keys-ragged", "3keys-ragged", "1key-ragged"])
+def test_merge_rows_layout_through_the_merge_level_twin(nk, S):
+    """``merge_rows``' buffer layout (each run padded to a multiple of 1024
+    columns, one K2 level at ``run`` = the padded run), driven through K2's
+    twin on CPU tensors, against the stable sort of each row; with five keys
+    one is read by index, and the planted all-0x7FFFFFFF tuples of both runs
+    must come out before the padding."""
+    keys, pay = _two_run_rows(np.random.default_rng(3), 4, S, nk)
+    _assert_runs_in_kernel_order(keys)
+    want = tsort.sort_rows_ref(keys, pay)
+    got = tsort._merge_rows_kernels(keys, pay)
+    assert all(g.shape == x.shape and torch.equal(g, x) for g, x in zip(got, want))
+    assert all(torch.equal(g, x) for g, x in zip(tsort.merge_rows(keys, pay), want))
+
+
+def test_merge_rows_counts_calls_and_padding(monkeypatch):
+    """``merge_rows.calls`` grows by one a call through the kernels' layout
+    and ``merge_rows.pad`` by the padding tuples it added: B * 2 * (S' - S),
+    0 at a width that is a multiple of 2048.  The twin path on the CPU
+    counts nothing, and a wrapper put in place of the global name (as the
+    traced benchmark does) does not take the counts."""
+    rng = np.random.default_rng(5)
+    calls, pad = tsort.merge_rows.calls, tsort.merge_rows.pad
+    tsort._merge_rows_kernels(*_two_run_rows(rng, 3, tsort.MERGE_TILE, 2))
+    assert (tsort.merge_rows.calls - calls, tsort.merge_rows.pad - pad) == (1, 0)
+    original = tsort.merge_rows
+    monkeypatch.setattr(tsort, "merge_rows", lambda keys, payloads=(): original(keys, payloads))
+    tsort._merge_rows_kernels(*_two_run_rows(rng, 3, 1100, 2))
+    assert (original.calls - calls, original.pad - pad) == (2, 3 * 2 * (2048 - 1100))
+    original(*_two_run_rows(rng, 3, 1100, 2))
+    assert (original.calls - calls, original.pad - pad) == (2, 3 * 2 * (2048 - 1100))
 
 
 def test_bad_shard_counts_raise():

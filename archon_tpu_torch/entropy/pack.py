@@ -29,12 +29,15 @@ Payload layout (the bytes between the frame's u32 plen and u32 base):
     ceil(nbits/32) x u32 words
 
 The port's own copy of ``archon_tpu/entropy/pack.py``, on the port's
-``native``.
+``native``.  ``stats`` counts what ``pack_block`` did, summed over the
+threads that call it (``io/blocks._pack_payloads`` packs on a pool).
 """
 
 from __future__ import annotations
 
 import struct
+import threading
+import time
 
 import numpy as np
 
@@ -42,6 +45,32 @@ from .. import native
 from .huffman import huff_compute
 
 NSYM = 257  # RUNA, RUNB, MTF values 1..255 shifted by +1
+
+
+class _Counter:
+    """Blocks packed, of them stored raw (method 0), their bytes in and
+    payload bytes out (the method byte included), and the calls' own wall
+    time in ns, since the last ``reset``.  ``add`` takes a lock: the pool's
+    threads pack at the same time."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.reset()
+
+    def reset(self):
+        with self._lock:
+            self.blocks = self.raw_blocks = self.bytes_in = self.bytes_out = self.ns = 0
+
+    def add(self, n: int, payload: bytes, ns: int) -> None:
+        with self._lock:
+            self.blocks += 1
+            self.raw_blocks += int(payload[0] == 0)
+            self.bytes_in += n
+            self.bytes_out += len(payload)
+            self.ns += ns
+
+
+stats = _Counter()
 
 
 def _codes_for(present: np.ndarray, counts: np.ndarray):
@@ -59,8 +88,15 @@ def _codes_for(present: np.ndarray, counts: np.ndarray):
 def pack_block(L: np.ndarray) -> bytes:
     """Pack one block's BWT payload; falls back to raw storage whenever the
     packed form would not be smaller (or a pathological histogram drives
-    Huffman past the 32-bit code limit)."""
+    Huffman past the 32-bit code limit).  Counted in ``stats``."""
+    t = time.perf_counter_ns()
     L = np.ascontiguousarray(L, np.uint8)
+    payload = _pack(L)
+    stats.add(len(L), payload, time.perf_counter_ns() - t)
+    return payload
+
+
+def _pack(L: np.ndarray) -> bytes:
     n = len(L)
     if n == 0:
         return b"\x00"

@@ -331,7 +331,9 @@ def _frames(blocks, results, pack: bool):
     a tuple of bytes-like pieces (L itself, not a copy of it: the caller
     joins or writes the pieces)."""
     if pack:
-        for (_L, base), blk, payload in zip(results, blocks, _pack_payloads(results)):
+        with span("archon.pack.blocks"):
+            payloads = _pack_payloads(results)
+        for (_L, base), blk, payload in zip(results, blocks, payloads):
             yield struct.pack("<II", len(blk), len(payload)), payload, struct.pack("<I", base)
     else:
         for (L, base), blk in zip(results, blocks):

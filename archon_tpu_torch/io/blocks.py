@@ -6,8 +6,10 @@
             u32 n | u32 plen | packed payload | u32 base          (ATA2)
 
 Each block is reversed and transformed on the device, and its (L, base)
-written as one frame; ``pack=True`` entropy-packs each L on the host
-(``entropy.pack``).  The device program is chosen by ``impl``:
+written as one frame; ``pack=True`` entropy-packs each L (``entropy.pack``):
+on the device where the batched program left it (``RowPack``), and on the
+host for the rows that come back as host arrays (the fallback, the stream,
+empty blocks).  The device program is chosen by ``impl``:
 
 - ``micro`` (the default, as in the JAX package): equal-length blocks stacked
   into (B, n) batches through ``core.batched.bwt_batched_micro*``, rows it
@@ -38,7 +40,7 @@ import torch
 
 from .. import native
 from ..core.doubling import SENT_LARGE, SENT_SMALL
-from ..entropy.pack import pack_block, unpack_block
+from ..entropy.pack import RowPack, pack_block, unpack_block
 from ..golden import sa as golden
 from ..utils.timing import span
 
@@ -207,7 +209,7 @@ _fallback_row.calls = 0  # rows recomputed since import (or since a caller set i
 
 
 def _batched_forward(blocks: list[bytes], generation: str, verify: bool = True,
-                     impl: str = "micro", device="cuda", mesh=None) -> list:
+                     impl: str = "micro", device="cuda", mesh=None, pack: bool = False) -> list:
     """Transform blocks, batching equal-length runs: [(L, base), ...].
 
     ``verify=True`` (default) runs the per-block LF certificate on the
@@ -222,7 +224,13 @@ def _batched_forward(blocks: list[bytes], generation: str, verify: bool = True,
     on ``device`` first; ``parallel.blocks`` moves each chunk to its own).
 
     Equal-length runs are cut into dispatch units of ``PIPE_BLOCKS`` rows;
-    unit i+1 is enqueued before unit i's payload is copied back."""
+    unit i+1 is enqueued before unit i's payload is copied back.
+
+    ``pack=True`` (``micro`` and ``v3``) packs each unit's rows where they
+    lie (``entropy.pack.RowPack``, enqueued right after the unit): a row the
+    program resolved comes back as its ATA2 payload (bytes) in place of L,
+    and only the packed words (or, for a row stored raw, L) are copied
+    back.  Rows left to the fallback come back as L."""
     from ..parallel.blocks import (
         bwt_blocks,
         bwt_blocks_certified,
@@ -278,7 +286,7 @@ def _batched_forward(blocks: list[bytes], generation: str, verify: bool = True,
             else:
                 L, base, resolved = bwt_blocks_micro(data2, sentinel, mesh=m)
                 ok = resolved
-            return first, blks, L, base, ok, resolved
+            return first, blks, L, base, ok, resolved, RowPack(L) if pack else None
 
     def fallback(block):
         with span("archon.container.fallback"):
@@ -288,15 +296,21 @@ def _batched_forward(blocks: list[bytes], generation: str, verify: bool = True,
         if not handle:
             return [(np.zeros(0, np.uint8), 0)]
         with span("archon.container.collect"):
-            first, blks, L, base, ok, resolved = handle
+            first, blks, L, base, ok, resolved, packer = handle
+            if packer is not None:
+                packer.plan()  # the Huffman builds, while the card runs the next unit
             resolved = resolved.cpu().numpy()
             ok = ok.cpu().numpy()
             if verify and not (ok | ~resolved).all():
                 bad = [first + t for t in np.nonzero(~ok & resolved)[0].tolist()]
                 raise AssertionError(f"BWT verification failed for block(s) {bad} (internal error)")
-            L = L.cpu().numpy()
+            if packer is None:
+                got = L.cpu().numpy()
+            else:  # each resolved row's payload in place of its L
+                rows = np.nonzero(resolved)[0].tolist()
+                got = dict(zip(rows, packer.payloads(rows)))
             base = base.cpu().numpy()
-            return [(L[t], int(base[t])) if resolved[t] else fallback(blks[t]) for t in range(len(blks))]
+            return [(got[t], int(base[t])) if resolved[t] else fallback(blks[t]) for t in range(len(blks))]
 
     out = []
     prev = None
@@ -311,13 +325,18 @@ def _batched_forward(blocks: list[bytes], generation: str, verify: bool = True,
 
 
 def _pack_payloads(results: list) -> list[bytes]:
-    """Entropy-pack each block's L on the host thread pool (the native
-    MTF/RLE0/bitpack calls release the GIL, so blocks pack on all cores)."""
-    items = [L for (L, _base) in results]
+    """Each block's ATA2 payload: a payload the device packed (bytes in
+    place of L) as it is, every other L packed on the host thread pool (the
+    native MTF/RLE0/bitpack calls release the GIL, so blocks pack on all
+    cores)."""
+    items = [L for (L, _base) in results if not isinstance(L, bytes)]
     if len(items) > 1:
         with ThreadPoolExecutor(max_workers=min(len(items), os.cpu_count() or 1)) as ex:
-            return list(ex.map(pack_block, items))
-    return [pack_block(L) for L in items]
+            packed = list(ex.map(pack_block, items))
+    else:
+        packed = [pack_block(L) for L in items]
+    packed = iter(packed)
+    return [L if isinstance(L, bytes) else next(packed) for (L, _base) in results]
 
 
 def _header(generation: str, block_size: int, pack: bool) -> bytes:
@@ -400,7 +419,7 @@ def encode_file(
     mesh = _dp_mesh(dp, device)
     with span("archon.container.split"):
         blocks = _split(data, block_size)
-    results = _batched_forward(blocks, generation, verify, impl, device, mesh)
+    results = _batched_forward(blocks, generation, verify, impl, device, mesh, pack=pack)
     with span("archon.container.frames"):
         pieces = [_header(generation, block_size, pack)]
         for frame in _frames(blocks, results, pack):
@@ -539,7 +558,7 @@ def encode_to_path(
         todo = blocks[done:]
         for i in range(0, len(todo), flush_blocks):
             batch = todo[i : i + flush_blocks]
-            results = _batched_forward(batch, generation, verify, impl, device)
+            results = _batched_forward(batch, generation, verify, impl, device, pack=pack)
             for frame in _frames(batch, results, pack):
                 f.writelines(frame)
                 computed += 1

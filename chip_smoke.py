@@ -45,6 +45,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    unit; one unit of 8 rows apart (ms, rounds, host syncs, launches, peak memory, the certificate's
    ms); a corrupted L failing the certificate; a file with a row that the
    micro program cannot resolve, through ``_fallback_row``;
+9b. the ATA2 pack on the card (``ops.pack``): ``mtf_rle`` and ``pack_words``
+    against their twins on a 4 MiB text BWT row, timed on an (8, 4 MiB) unit
+    (each of the six kernels by ``torch.profiler`` beside its byte bound),
+    and ``entropy.pack.RowPack``'s payloads of the unit equal to
+    ``pack_block``'s;
 10. resume: ``encode_to_path`` cut in the middle of a frame and resumed, then
     resumed after one input byte changed; ``extract_block`` of both
     containers;
@@ -938,6 +943,140 @@ def phase_batched(text: bytes, stream: dict) -> dict:
     return launches
 
 
+def pack_bounds(state, nwords: int) -> dict:
+    """Bytes each pack kernel needs, each input read once and each output
+    written once, by kernel of ``csrc/pack.cu``: L (1 B a byte), the chunks'
+    stamp tables (1 KiB a chunk), symbols (2 B each), chunk histograms and
+    records (4 B an entry), each chunk's first bit (8 B), the words."""
+    B, n = state.syms.shape
+    chunks = B * state.meta.shape[1]
+    syms = 2 * int(state.meta[..., 0].sum())
+    stamps, hists = 1024 * chunks, 4 * state.chist.shape[2] * chunks
+    meta = 4 * state.meta.shape[2] * chunks
+    return {"pack_occ_kernel": B * n + stamps, "pack_occ_scan_kernel": 2 * stamps,
+            "pack_mtf_kernel": B * n + stamps + syms + hists + meta,
+            "pack_rle_scan_kernel": 2 * (meta + hists),
+            "pack_bits_scan_kernel": hists + 8 * chunks,
+            "pack_words_kernel": syms + meta + 8 * chunks + 4 * nwords}
+
+
+def _kernel_ms(fn, pattern: str, calls: int = TIMED_CALLS) -> dict:
+    """Device milliseconds a call of ``fn`` by kernel name (the names that
+    ``pattern`` finds), from ``torch.profiler``'s CUDA events."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        m = re.search(pattern, e.key)
+        if m and e.device_type == DeviceType.CUDA:
+            out[m.group(0)] = out.get(m.group(0), 0.0) + e.self_device_time_total / 1e3 / calls
+    return out
+
+
+def phase_pack(text: bytes) -> dict:
+    """The ATA2 pack on the card (``ops.pack``, ``entropy.pack.RowPack``):
+    each kernel call against its twin on one 4 MiB text BWT row, both timed
+    on an (8, 4 MiB) unit and each kernel beside its byte bound, and the
+    unit's payloads equal to ``pack_block``'s, each path's host time beside
+    the other's."""
+    import numpy as np
+    import torch
+
+    from archon_tpu_torch.core.fast2 import bwt_v3
+    from archon_tpu_torch.entropy import pack
+    from archon_tpu_torch.ops import pack as P
+
+    block = 4 * MIB
+    L = torch.stack([bwt_v3(torch.frombuffer(bytearray(text[i * block : (i + 1) * block]),
+                                             dtype=torch.uint8).cuda(), "small")[0]
+                     for i in range(8)])
+    t0 = time.perf_counter()
+    twin = P.mtf_rle_ref(L[:1].cpu(), P.PACK_CHUNK)
+    twin_ms = (time.perf_counter() - t0) * 1e3
+    got = P.mtf_rle(L[:1].contiguous(), P.PACK_CHUNK)
+    for field in ("meta", "chist", "head"):
+        if not torch.equal(getattr(got, field).cpu(), getattr(twin, field)):
+            raise AssertionError(f"mtf_rle's {field} differs from its twin's on a text row")
+    if not torch.equal(P.symbols(got)[0], P.symbols(twin)[0]):
+        raise AssertionError("mtf_rle's symbols differ from its twin's on a text row")
+    head = twin.head.numpy()
+    hist = head[0, : P.NSYM].astype(np.int64)
+    present = np.nonzero(hist)[0]
+    vals, lens, _maxlen = pack._codes_for(present, hist[present])
+    nwords = (int(hist @ lens.astype(np.int64)) + 31) // 32
+    codes = torch.from_numpy(vals.view(np.int32).copy())[None]
+    lens_t = torch.from_numpy(lens.astype(np.int32))[None]
+    first = torch.zeros(1, dtype=torch.int64)
+    t0 = time.perf_counter()
+    twin_words = P.pack_words_ref(twin, codes, lens_t, first, nwords)
+    twin_words_ms = (time.perf_counter() - t0) * 1e3
+    words = P.pack_words(got, codes.cuda(), lens_t.cuda(), first.cuda(), nwords)
+    if not torch.equal(words.cpu(), twin_words):
+        raise AssertionError("pack_words differs from its twin on a text row")
+    print(f"[pack] one 4 MiB text BWT row: mtf_rle and pack_words == their twins (m "
+          f"{int(head[0, P.NSYM])}, {nwords} words); twins {twin_ms:.1f} / {twin_words_ms:.1f} ms "
+          f"on the host")
+
+    state = P.mtf_rle(L)
+    heads = state.head.cpu().numpy()
+    tables = [pack._codes_for(np.nonzero(h[: P.NSYM])[0], h[: P.NSYM][np.nonzero(h[: P.NSYM])[0]])
+              for h in heads.astype(np.int64)]
+    sizes = [(int(h[: P.NSYM].astype(np.int64) @ t[1].astype(np.int64)) + 31) // 32
+             for h, t in zip(heads, tables)]
+    codes8 = torch.from_numpy(np.stack([t[0] for t in tables]).view(np.int32)).cuda()
+    lens8 = torch.from_numpy(np.stack([t[1] for t in tables]).astype(np.int32)).cuda()
+    first8 = torch.from_numpy(np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)).cuda()
+    total = int(sum(sizes))
+    launches = (P.mtf_rle.launches, P.pack_words.launches)
+    mtf_ms = _time_ms(lambda: P.mtf_rle(L))
+    words_ms = _time_ms(lambda: P.pack_words(state, codes8, lens8, first8, total))
+    print(f"[pack] (8, {block}) unit, chunk {P.PACK_CHUNK}: mtf_rle {mtf_ms:.3f} ms, pack_words "
+          f"{words_ms:.3f} ms (CUDA events)")
+    bounds = pack_bounds(state, total)
+    per_kernel = {**_kernel_ms(lambda: P.mtf_rle(L), r"pack_\w+_kernel"),
+                  **_kernel_ms(lambda: P.pack_words(state, codes8, lens8, first8, total),
+                               r"pack_\w+_kernel")}
+    if set(per_kernel) != set(bounds):
+        raise AssertionError(f"the profiler saw pack kernels {sorted(per_kernel)}, not all six")
+    for name, nbytes in bounds.items():
+        print(f"[pack]   {name}: {per_kernel[name]:.4f} ms (torch.profiler), bound "
+              f"{nbytes / 3.35e9:.4f} ms ({nbytes / 1e6:.1f} MB at 3.35 TB/s)")
+
+    rows = list(range(8))
+    pack.RowPack(L).payloads(rows)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = pack.RowPack(L).payloads(rows)
+    row_ms = (time.perf_counter() - t0) * 1e3
+    L_host = L.cpu().numpy()
+    t0 = time.perf_counter()
+    want = [pack.pack_block(row) for row in L_host]
+    host_ms = (time.perf_counter() - t0) * 1e3
+    if got != want:
+        raise AssertionError("RowPack's payloads differ from pack_block's on the unit")
+    ratio = sum(map(len, got)) / (8 * block)
+    print(f"[pack] (8, {block}) unit through RowPack == pack_block row by row (ratio "
+          f"{100 * ratio:.3f}%): RowPack {row_ms:.2f} ms on the host clock, pack_block "
+          f"{host_ms:.2f} ms on one thread")
+    counts = {"mtf_rle": P.mtf_rle.launches - launches[0],
+              "pack_words": P.pack_words.launches - launches[1]}
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"a pack kernel never launched: {counts}")
+    return {"mtf_rle_ms": mtf_ms, "pack_words_ms": words_ms, "twin_ms": twin_ms,
+            "twin_words_ms": twin_words_ms, "row_pack_ms": row_ms, "pack_block_ms": host_ms,
+            "kernel_ms": per_kernel, "kernel_bytes": bounds}
+
+
 def phase_resume(text: bytes, stream: dict) -> None:
     """``encode_to_path`` cut and resumed, input drift, ``extract_block``."""
     import archon_tpu_torch as port
@@ -1601,6 +1740,7 @@ def main() -> int:
     timed_phase(phase_breakdown, text[: 4 * MIB])
     timed_phase(phase_sort_rows)
     batched_launches = timed_phase(phase_batched, text, stream)
+    pack_stats = timed_phase(phase_pack, text)
     timed_phase(phase_resume, text, stream)
     fast_block = timed_phase(phase_v1, text)
     sais_block = timed_phase(phase_sais, text)
@@ -1620,7 +1760,7 @@ def main() -> int:
          "max_abs_err": KERNEL_ERR[name], **stats[name], **mega_shapes[name]}
         for name in ("sort_tiles", "merge_level")
     ]
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "pack": pack_stats}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -390,3 +390,99 @@ def test_unbwt_blocks_on_card_matches_row_loop(cuda_device):
     got = pblocks.unbwt_blocks(L, base, "large")
     loop = torch.stack([unbwt.bwt_inverse(L[b], int(base[b]), "large") for b in range(3)])
     assert torch.equal(got, loop) and torch.equal(got, rows.flip(1))
+
+
+def _pack_tables(head: np.ndarray):
+    """Each row's code table as ``RowPack`` builds it, for the rows with two
+    symbols or more: (codes, lens, row_word, total words)."""
+    from archon_tpu_torch.entropy import pack
+
+    B = head.shape[0]
+    codes = np.zeros((B, pack.NSYM), np.uint32)
+    lens = np.zeros((B, pack.NSYM), np.int32)
+    row_word = np.full(B, -1, np.int64)
+    total = 0
+    for b in range(B):
+        hist = head[b, : pack.NSYM].astype(np.int64)
+        present = np.nonzero(hist)[0]
+        if len(present) > 1:
+            codes[b], lens[b], _maxlen = pack._codes_for(present, hist[present])
+            row_word[b] = total
+            total += (int(hist @ lens[b]) + 31) // 32
+    return (torch.from_numpy(codes.view(np.int32)), torch.from_numpy(lens),
+            torch.from_numpy(row_word), total)
+
+
+def _hold_pack_to_twins(L: torch.Tensor, chunk: int) -> None:
+    """mtf_rle and pack_words on the card against their twins: every
+    chunk's table and symbols, the heads, each row's stream and the words;
+    both must launch."""
+    from archon_tpu_torch.ops import pack as ops_pack
+
+    before = (ops_pack.mtf_rle.launches, ops_pack.pack_words.launches)
+    got = ops_pack.mtf_rle(L, chunk)
+    want = ops_pack.mtf_rle_ref(L.cpu(), chunk)
+    for field in ("meta", "chist", "head"):
+        assert torch.equal(getattr(got, field).cpu(), getattr(want, field)), field
+    for g, w in zip(ops_pack.symbols(got), ops_pack.symbols(want)):
+        assert torch.equal(g, w)
+    codes, lens, row_word, total = _pack_tables(want.head.numpy())
+    words = ops_pack.pack_words(got, codes.to(L.device), lens.to(L.device), row_word.to(L.device),
+                                total)
+    assert torch.equal(words.cpu(), ops_pack.pack_words_ref(want, codes, lens, row_word, total))
+    assert ops_pack.mtf_rle.launches == before[0] + 1
+    assert ops_pack.pack_words.launches == before[1] + 1
+
+
+def _pack_rows(n: int) -> np.ndarray:
+    rng = np.random.default_rng(n)
+    runs = np.concatenate([[9] * k + [200, 9] + [200] * k + [3] + [3] * k for k in range(1, 140)])
+    return np.stack([
+        np.resize(runs, n).astype(np.uint8),
+        np.resize(rng.permutation(256).astype(np.uint8), n),
+        np.full(n, 77, np.uint8),
+        np.frombuffer(text_like(n, 5), np.uint8),
+        np.repeat(rng.integers(0, 256, n), rng.integers(1, 40, n))[:n].astype(np.uint8),
+    ])
+
+
+@pytest.mark.parametrize("chunk", [7, 64, 997, 4096])
+@pytest.mark.parametrize("n", [1, 20_011])
+def test_pack_kernels_match_twins_on_card(cuda_device, chunk, n):
+    _hold_pack_to_twins(torch.from_numpy(_pack_rows(n)).to(cuda_device), chunk)
+
+
+def test_pack_kernels_on_a_text_bwt(cuda_device):
+    """A 4 MiB Zipf-text BWT row against the twins; an (8, 4 MiB) unit of
+    them through ``RowPack``, equal to ``pack_block`` row by row."""
+    from archon_tpu_torch.entropy import pack
+    from archon_tpu_torch.ops import pack as ops_pack
+    from portbench.gen.zipf_text import zipf_text
+
+    n = 1 << 22
+    rows = [fast2.bwt_v3(torch.from_numpy(np.frombuffer(zipf_text(n, 2**31 + s), np.uint8).copy())
+                         .to(cuda_device), "small")[0] for s in range(8)]
+    _hold_pack_to_twins(rows[0][None].contiguous(), ops_pack.PACK_CHUNK)
+    L = torch.stack(rows)
+    device_blocks = pack.stats.device_blocks
+    got = pack.RowPack(L).payloads(list(range(8)))
+    assert got == [pack.pack_block(row) for row in L.cpu().numpy()]
+    assert pack.stats.device_blocks == device_blocks + 8
+    assert all(p[0] == 1 for p in got)
+
+
+def test_packed_container_on_card_equals_the_host_pack(cuda_device):
+    """A Silesia-sized file (dickens, 10,192,446 bytes: 2 blocks and a
+    ragged tail) packed on the card, byte for byte the host pack's."""
+    from archon_tpu_torch.entropy import pack
+    from archon_tpu_torch.io import blocks
+    from archon_tpu_torch.ops import pack as ops_pack
+    from portbench.gen.zipf_text import zipf_text
+
+    data = zipf_text(10_192_446, 2**31 + 77)
+    before = (ops_pack.mtf_rle.launches, ops_pack.pack_words.launches, pack.stats.device_blocks)
+    got = blocks.encode_file(data, "a4", pack=True, device=cuda_device)
+    assert (ops_pack.mtf_rle.launches - before[0], ops_pack.pack_words.launches - before[1],
+            pack.stats.device_blocks - before[2]) == (2, 2, 3)
+    assert got == blocks.encode_file(data, "a4", impl="stream", pack=True, device=cuda_device)
+    assert blocks.decode_file(got) == data

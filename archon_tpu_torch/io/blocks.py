@@ -7,9 +7,9 @@
 
 Each block is reversed and transformed on the device, and its (L, base)
 written as one frame; ``pack=True`` entropy-packs each L (``entropy.pack``):
-on the device where the batched program left it (``RowPack``), and on the
-host for the rows that come back as host arrays (the fallback, the stream,
-empty blocks).  The device program is chosen by ``impl``:
+on the card where the batched program left it (``RowPack``), and on the
+host for every other row (L on the CPU, the fallback, the stream, empty
+blocks).  The device program is chosen by ``impl``:
 
 - ``micro`` (the default, as in the JAX package): equal-length blocks stacked
   into (B, n) batches through ``core.batched.bwt_batched_micro*``, rows it
@@ -208,6 +208,13 @@ def _fallback_row(block: bytes, sentinel: str, verify: bool, device):
 _fallback_row.calls = 0  # rows recomputed since import (or since a caller set it to 0)
 
 
+def _packs_on_device(L: torch.Tensor) -> bool:
+    """Whether a unit's rows pack where they lie (``RowPack``): on a card.
+    Rows on the CPU pack on the host pool (``pack_block``), which outruns
+    the device pack's plain twins there many times over."""
+    return L.is_cuda
+
+
 def _batched_forward(blocks: list[bytes], generation: str, verify: bool = True,
                      impl: str = "micro", device="cuda", mesh=None, pack: bool = False) -> list:
     """Transform blocks, batching equal-length runs: [(L, base), ...].
@@ -226,11 +233,12 @@ def _batched_forward(blocks: list[bytes], generation: str, verify: bool = True,
     Equal-length runs are cut into dispatch units of ``PIPE_BLOCKS`` rows;
     unit i+1 is enqueued before unit i's payload is copied back.
 
-    ``pack=True`` (``micro`` and ``v3``) packs each unit's rows where they
-    lie (``entropy.pack.RowPack``, enqueued right after the unit): a row the
-    program resolved comes back as its ATA2 payload (bytes) in place of L,
-    and only the packed words (or, for a row stored raw, L) are copied
-    back.  Rows left to the fallback come back as L."""
+    ``pack=True`` (``micro`` and ``v3``) packs each unit's rows on the card
+    where they lie (``entropy.pack.RowPack``, enqueued right after the
+    unit): a row the program resolved comes back as its ATA2 payload (bytes)
+    in place of L, and only the packed words (or, for a row stored raw, L)
+    are copied back.  Rows left to the fallback, and units on the CPU, come
+    back as L."""
     from ..parallel.blocks import (
         bwt_blocks,
         bwt_blocks_certified,
@@ -286,7 +294,8 @@ def _batched_forward(blocks: list[bytes], generation: str, verify: bool = True,
             else:
                 L, base, resolved = bwt_blocks_micro(data2, sentinel, mesh=m)
                 ok = resolved
-            return first, blks, L, base, ok, resolved, RowPack(L) if pack else None
+            packer = RowPack(L) if pack and _packs_on_device(L) else None
+            return first, blks, L, base, ok, resolved, packer
 
     def fallback(block):
         with span("archon.container.fallback"):

@@ -49,7 +49,9 @@ Phases, each printing its own lines; any failure exits non-zero:
     against their twins on a 4 MiB text BWT row, timed on an (8, 4 MiB) unit
     (each of the six kernels by ``torch.profiler`` beside its byte bound),
     and ``entropy.pack.RowPack``'s payloads of the unit equal to
-    ``pack_block``'s;
+    ``pack_block``'s; then 40 MiB (a unit of 8 rows and a tail of 2) through
+    ``encode_file(pack=True)`` equal to the host pack's container, with the
+    pack kernels' launches counted from zero in that run alone;
 10. resume: ``encode_to_path`` cut in the middle of a frame and resumed, then
     resumed after one input byte changed; ``extract_block`` of both
     containers;
@@ -87,7 +89,8 @@ Phases, each printing its own lines; any failure exits non-zero:
     16 MiB file (stage report, a trace file), ``d`` back to the input; then
     ``e --sp 8`` (an ``ATM1`` file) and ``d`` of it;
 17. ``utils.tools.memory_report`` beside the measured peak of ``bwt_v3``;
-18. one JSON line describing the kernels, then the device line last.
+18. one JSON line describing the kernels (the six pack kernels with the
+    launches of phase 9b's ``encode_file``), then the device line last.
 
 Phases 5 and 6 zero the kernel launch counts before each encode or device
 decode and fail unless both kernels launched in it; so do the 64 MiB runs of
@@ -113,6 +116,11 @@ ROOT = Path(__file__).resolve().parent
 MIB = 1 << 20
 TIMED_CALLS = 5
 SOURCE = "archon_tpu_torch/csrc/sort.cu"
+PACK_SOURCE = "archon_tpu_torch/csrc/pack.cu"
+# the kernels of each ops.pack call, in launch order
+PACK_CALLS = {"mtf_rle": ("pack_occ_kernel", "pack_occ_scan_kernel", "pack_mtf_kernel",
+                          "pack_rle_scan_kernel"),
+              "pack_words": ("pack_bits_scan_kernel", "pack_words_kernel")}
 REPLACES = {
     "sort_tiles": "archon_tpu/ops/pallas_sort.py:393",
     "merge_level": "archon_tpu/ops/pallas_sort.py:317",
@@ -983,17 +991,21 @@ def _kernel_ms(fn, pattern: str, calls: int = TIMED_CALLS) -> dict:
     return out
 
 
-def phase_pack(text: bytes) -> dict:
+def phase_pack(text: bytes) -> tuple:
     """The ATA2 pack on the card (``ops.pack``, ``entropy.pack.RowPack``):
     each kernel call against its twin on one 4 MiB text BWT row, both timed
     on an (8, 4 MiB) unit and each kernel beside its byte bound, and the
     unit's payloads equal to ``pack_block``'s, each path's host time beside
-    the other's."""
+    the other's; then the main path, ``encode_file(pack=True)`` over a unit
+    and a ragged tail, equal to the host pack's bytes, with each kernel's
+    launches counted in that run alone.  Returns the stats and one entry a
+    kernel for the JSON line."""
     import numpy as np
     import torch
 
     from archon_tpu_torch.core.fast2 import bwt_v3
     from archon_tpu_torch.entropy import pack
+    from archon_tpu_torch.io import blocks
     from archon_tpu_torch.ops import pack as P
 
     block = 4 * MIB
@@ -1072,9 +1084,35 @@ def phase_pack(text: bytes) -> dict:
               "pack_words": P.pack_words.launches - launches[1]}
     if min(counts.values()) <= 0:
         raise AssertionError(f"a pack kernel never launched: {counts}")
-    return {"mtf_rle_ms": mtf_ms, "pack_words_ms": words_ms, "twin_ms": twin_ms,
-            "twin_words_ms": twin_words_ms, "row_pack_ms": row_ms, "pack_block_ms": host_ms,
-            "kernel_ms": per_kernel, "kernel_bytes": bounds}
+
+    k = 10  # a unit of 8 rows, then a ragged tail of 2: two units, so two calls of each
+    data = text[: k * block]
+    s = pack.stats
+    before = s.device_blocks
+    P.mtf_rle.launches = P.pack_words.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = blocks.encode_file(data, "a4", block, pack=True, impl="micro", device="cuda")
+    file_s = time.perf_counter() - t0
+    path = {"mtf_rle": P.mtf_rle.launches, "pack_words": P.pack_words.launches}
+    device_blocks = s.device_blocks - before
+    want = blocks.encode_file(data, "a4", block, pack=True, impl="stream", device="cuda")
+    if got != want:
+        raise AssertionError("encode_file(pack=True) on the card differs from the host pack's container")
+    if path != {"mtf_rle": 2, "pack_words": 2} or device_blocks < 1:
+        raise AssertionError(f"encode_file(pack=True) on {k} blocks: launches {path}, "
+                             f"{device_blocks} device block(s)")
+    print(f"[pack] encode_file a4 {k * block >> 20} MiB, pack=True, micro: {file_s:.4f} s, == the "
+          f"host pack's container; mtf_rle {path['mtf_rle']} / pack_words {path['pack_words']} calls, "
+          f"{device_blocks} of {k} blocks packed on the card")
+    kernels = [{"name": name, "route": "cuda", "source": PACK_SOURCE, "replaces": None,
+                "call": call, "launches": path[call], "ms": per_kernel[name],
+                "bound_ms": bounds[name] / 3.35e9, "bound_by": "bytes at 3.35 TB/s"}
+               for call, names in PACK_CALLS.items() for name in names]
+    stats = {"mtf_rle_ms": mtf_ms, "pack_words_ms": words_ms, "twin_ms": twin_ms,
+             "twin_words_ms": twin_words_ms, "row_pack_ms": row_ms, "pack_block_ms": host_ms,
+             "encode_file_s": file_s, "device_blocks": device_blocks}
+    return stats, kernels
 
 
 def phase_resume(text: bytes, stream: dict) -> None:
@@ -1740,7 +1778,7 @@ def main() -> int:
     timed_phase(phase_breakdown, text[: 4 * MIB])
     timed_phase(phase_sort_rows)
     batched_launches = timed_phase(phase_batched, text, stream)
-    pack_stats = timed_phase(phase_pack, text)
+    pack_stats, pack_kernels = timed_phase(phase_pack, text)
     timed_phase(phase_resume, text, stream)
     fast_block = timed_phase(phase_v1, text)
     sais_block = timed_phase(phase_sais, text)
@@ -1759,7 +1797,7 @@ def main() -> int:
          "launches_sais_block": sais_block[name], "launches_fast_block": fast_block[name],
          "max_abs_err": KERNEL_ERR[name], **stats[name], **mega_shapes[name]}
         for name in ("sort_tiles", "merge_level")
-    ]
+    ] + pack_kernels
     print(json.dumps({"kernels": kernels, "pack": pack_stats}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

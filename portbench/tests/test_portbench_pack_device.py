@@ -1,16 +1,23 @@
 """Faults planted in the device pack (``entropy.pack.RowPack``, the path of
-every row the batched program resolves) come out not correct in the cell
-``a4_micro_pack.silesia_text`` run small on the CPU, and the cell reads
-``pack.device_pct``."""
+every row the batched program resolves on the card) come out not correct in
+the cell ``a4_micro_pack.silesia_text`` run small on the CPU with its units
+packed as on a card, and the cell reads ``pack.device_pct``."""
 
 import numpy as np
+import pytest
 
 from archon_tpu_torch.entropy import pack
+from archon_tpu_torch.io import blocks
 from portbench import harness
 
 CELL = "a4_micro_pack.silesia_text"
 SEED = 2**31 + 101
 SCALE, CALL = 1024, {"block_size": 8192}
+
+
+@pytest.fixture(autouse=True)
+def packs_as_on_a_card(monkeypatch):
+    monkeypatch.setattr(blocks, "_packs_on_device", lambda L: True)
 
 
 def small_run(trace=False):

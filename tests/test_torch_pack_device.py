@@ -160,12 +160,14 @@ def test_row_pack_stores_raw_where_the_codes_pass_32_bits(monkeypatch):
     assert got == want == [b"\x00" + row.tobytes() for row in L]
 
 
-@pytest.mark.parametrize("generation", ["a4", "a7"])
-def test_encode_file_packs_on_the_device_path(generation):
+def _pack_counts(generation: str, on_device: bool, monkeypatch):
     """A unit of 8 rows and a ragged 1-row tail (an incompressible block
-    among them), through the device path on the CPU: the host pack's
-    container byte for byte (the stream packs every L on the host), the
-    reference's, and every row counted as a device block."""
+    among them) through ``encode_file(pack=True, device="cpu")``, its units
+    packed as on a card (the twins, through ``RowPack``) or not: the
+    container, held to the host pack's byte for byte (the stream packs every
+    L on the host) and to the reference's, and the pack's counters."""
+    if on_device:
+        monkeypatch.setattr(blocks, "_packs_on_device", lambda L: True)
     block = 2048
     rng = np.random.default_rng(11)
     data = (zipf_text(5 * block, 21) + rng.integers(0, 256, block, dtype=np.uint8).tobytes()
@@ -179,8 +181,24 @@ def test_encode_file_packs_on_the_device_path(generation):
     assert got == host == ata2.build(data, generation, block, "cpu")
     payloads = [p for _n, p, _base in ata2.parse(got)[1]]
     assert [p[0] for p in payloads] == [1] * 5 + [0] + [1] * 3
-    assert counts == (9, 1, 9, len(data), sum(map(len, payloads)))
     assert blocks.decode_file(got) == data
+    return counts, len(data), sum(map(len, payloads))
+
+
+@pytest.mark.parametrize("generation", ["a4", "a7"])
+def test_encode_file_packs_on_the_device_path(generation, monkeypatch):
+    """Units packed as on a card: every row counted as a device block."""
+    counts, n, size = _pack_counts(generation, True, monkeypatch)
+    assert counts == (9, 1, 9, n, size)
+
+
+@pytest.mark.parametrize("generation", ["a4", "a7"])
+def test_encode_file_on_the_cpu_packs_on_the_host(generation, monkeypatch):
+    """Units whose L lies on the CPU pack on the host pool (``pack_block``),
+    not through the twins: the same bytes, no device block."""
+    monkeypatch.setattr(blocks, "RowPack", None)  # a call would raise
+    counts, n, size = _pack_counts(generation, False, monkeypatch)
+    assert counts == (9, 1, 0, n, size)
 
 
 def test_payload_head_is_the_host_layout():
@@ -195,11 +213,13 @@ def test_payload_head_is_the_host_layout():
     assert len(got) == 11 + 6 * npresent + 4 * ((nbits + 31) // 32)
 
 
-def test_device_pack_spans_nest_in_dispatch_and_collect():
+def test_device_pack_spans_nest_in_dispatch_and_collect(monkeypatch):
     """``archon.pack.launch`` opens inside each unit's dispatch, ``.codes``
-    and ``.words`` inside its collect; a file of two units opens each."""
+    and ``.words`` inside its collect; a file of two units, packed as on a
+    card, opens each."""
     from torch.profiler import ProfilerActivity, profile
 
+    monkeypatch.setattr(blocks, "_packs_on_device", lambda L: True)
     data = zipf_text(8 * 2048 + 999, 41)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         blocks.encode_file(data, "a4", 2048, impl="micro", pack=True, device="cpu")

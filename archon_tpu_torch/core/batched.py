@@ -4,7 +4,9 @@ structure kept).  The v3 family comes first, the v1 family (the 2-D
 ``core.fast``: ``suffix_ranks_batched``, ``bwt_forward_batched``,
 ``suffix_arrays_batched``) at the end.
 
-Every row runs the pipeline of ``core/fast2.bwt_v3`` in lockstep: one
+This is the port's one v3 forward BWT (bootstrap, full rounds with the
+previous byte carried, micro tail, narrowing cascade); ``core.fast2.bwt_v3``
+and ``bwt_v3_payload`` run it on one row.  Every row runs in lockstep: one
 doubling schedule ``k = 12, 48, ...`` for the batch, every sort a
 ``ops.sort.sort_rows`` over all rows at once (on CUDA one launch of the tile
 sort and one of each merge level for the whole batch).  A formula that is
@@ -42,7 +44,6 @@ from .fast import _ranks_fused, _Stages
 from .fast2 import (
     _BIG,
     _I32,
-    _TILE,
     _group_ranks,
     _narrow_caps,
     _quad_keys,
@@ -63,6 +64,7 @@ __all__ = [
 ]
 
 _trigram_keys2 = _trigram_keys  # (B, n) -> (B, n + 9): the 1-D formula along the last axis
+_TILE = 32  # the micro tail's extraction reduces the sorted order in tiles of this width
 
 
 stats = _Counter()  # of the batched sorters of this module
@@ -131,7 +133,7 @@ def _sorted_round2(keys, prev2):
 
 def _bootstrap_sorted2(data2: torch.Tensor, prev2: torch.Tensor, sentinel: str):
     """Per-row context-12 bootstrap (4 packed-trigram keys, one sort), no
-    rank inversion: the 2-D ``fast2._bootstrap_sorted``."""
+    rank inversion."""
     n = data2.shape[1]
     p27 = _trigram_keys2(data2, sentinel)
     return _sorted_round2([p27[:, 3 * j : 3 * j + n] for j in range(4)], prev2)
@@ -158,9 +160,9 @@ def _compact_from_round2(si, rs, active_s, cap: int):
 
 def _extract_actives_sorted2(si, rs, ac, na, cap: int):
     """Per-row entry-active (pos, r0) pairs when every row's na <= cap,
-    without a full-width compaction sort: the 2-D
-    ``fast2._extract_actives_sorted`` (32-wide tiles, tile-key sort, tile
-    gather, cap*32-wide compaction)."""
+    without a full-width compaction sort: reduce 32-wide tiles of the
+    round's sorted order, sort only the tile keys, gather the first ``cap``
+    candidate tiles and compact at cap*32 width."""
     B, n = si.shape
     if n <= cap * _TILE:
         return _compact_from_round2(si, rs, ac, cap)
@@ -193,10 +195,11 @@ def _shifted_keys(src2, safe, valid, steps, off_end):
 
 
 def _micro_round2(G, g: int, pos, r, j_lo: int, j_hi: int, sentinel: str):
-    """Per-row inversion-free narrowed round: the 2-D ``fast2._micro_round``
-    (sort on (r, G[p+j*g] for j in [j_lo, j_hi)) against the consistent
-    coarse snapshot G; no compaction).  Returns (sorted positions, refined
-    ranks, still-active counts per row)."""
+    """Per-row inversion-free narrowed round: refines ranks ``r`` (context
+    j_lo*g) to context j_hi*g by sorting on (r, G[p+j*g] for j in [j_lo,
+    j_hi)) against the one consistent coarse snapshot G; no compaction.
+    Returns (sorted positions, refined ranks, still-active counts per
+    row)."""
     B, C = pos.shape
     off_end = -1 if sentinel == SENT_SMALL else _BIG
     valid = pos >= 0
@@ -231,20 +234,26 @@ def _round_active2c(rank, apos, ar0, k: int, sentinel: str):
     return (rank, *_front(iota_c < nactive[:, None], new_apos, new_ar0), nactive)
 
 
+def _recompact2(apos, ar0, na, cap: int):
+    """Re-compact each row's active set to the smaller capacity ``cap`` (one
+    C-width sort)."""
+    keyc = torch.where(apos >= 0, 0, 1).to(_I32)
+    _, aposc, ar0c = sort_rows((keyc,), (apos, ar0))
+    keep = _row_iota(apos.shape[0], cap, apos.device) < na[:, None]
+    return _front(keep, aposc[:, :cap], ar0c[:, :cap])
+
+
 def _narrow_cascade2(rank, k: int, na, apos, ar0, sentinel: str, caps):
     """2-D narrowing cascade at static capacities (``fast2._narrow_cascade``):
-    rounds run at cap_i while the largest active count exceeds cap_{i+1}.
-    Returns (k, rank, na)."""
-    B, n = rank.shape
+    rounds run at cap_i while the largest active count exceeds cap_{i+1},
+    re-compacting between stages.  Returns (k, rank, na)."""
+    n = rank.shape[1]
     m = _max_count(na)
     for i, cap in enumerate(caps):
         if m == 0 or k >= n:
             break
         if i > 0:
-            keyc = torch.where(apos >= 0, 0, 1).to(_I32)
-            _, aposc, ar0c = sort_rows((keyc,), (apos, ar0))
-            keep = _row_iota(B, cap, rank.device) < na[:, None]
-            apos, ar0 = _front(keep, aposc[:, :cap], ar0c[:, :cap])
+            apos, ar0 = _recompact2(apos, ar0, na, cap)
         floor = caps[i + 1] if i + 1 < len(caps) else 0
         while m > floor and k < n:
             rank, apos, ar0, na = _round_active2c(rank, apos, ar0, k, sentinel)
@@ -253,14 +262,13 @@ def _narrow_cascade2(rank, k: int, na, apos, ar0, sentinel: str, caps):
     return k, rank, na
 
 
-def _full_rounds(data2: torch.Tensor, sentinel: str):
-    """Bootstrap and the full quadrupling rounds, run while the largest
-    active count exceeds n/16: (k, si, rs, ac, na, prev_s, G, prev2, largest
-    count).  G is the packed trigrams at bootstrap exit, the last inverted
-    rank after full rounds."""
+def _full_rounds(data2: torch.Tensor, prev2: torch.Tensor, sentinel: str):
+    """Bootstrap and the full quadrupling rounds with the payload ``prev2``
+    carried, run while the largest active count exceeds n/16: (k, si, rs,
+    ac, na, prev_s, G, largest count).  G is the packed trigrams at bootstrap
+    exit, the last inverted rank after full rounds."""
     n = data2.shape[1]
     with span("archon.batched.bootstrap"):
-        prev2 = torch.roll(data2, 1, dims=1)
         si, rs, ac, na, prev_s = _bootstrap_sorted2(data2, prev2, sentinel)
         G = _trigram_keys2(data2, sentinel)[:, :n]
         k = 12
@@ -270,7 +278,7 @@ def _full_rounds(data2: torch.Tensor, sentinel: str):
             si, rs, ac, na, prev_s, G = _round_full_sorted2(si, rs, prev2, k, sentinel)
             k *= 4
             m = _max_count(na)
-    return k, si, rs, ac, na, prev_s, G, prev2, m
+    return k, si, rs, ac, na, prev_s, G, m
 
 
 def _micro_tail(k: int, si, rs, ac, na, G, sentinel: str):
@@ -319,12 +327,14 @@ def _rank_micro2(si, rs, pos, r):
         return _scatter_drop(rank, torch.where(valid, pos, n), torch.where(valid, r, 0))
 
 
-def _bwt_batched_v3_impl(data2: torch.Tensor, sentinel: str, want_rank: bool):
-    """Shared v3 body: (L2, base2, rank2), rank2 the final full-width rank
-    rows when ``want_rank`` and a (B, 0) placeholder otherwise."""
+def _bwt_batched_v3_impl(data2: torch.Tensor, prev2: torch.Tensor, sentinel: str,
+                         want_rank: bool):
+    """The v3 body: (L2, base2, rank2) with L2[b, rank2[b, p]] = prev2[b, p],
+    rank2 the final full-width rank rows when ``want_rank`` and a (B, 0)
+    placeholder otherwise.  The BWT carries prev2 = roll(data2, 1)."""
     B, n = data2.shape
     cap1, cap2, cap3 = _narrow_caps(n)
-    k, si, rs, ac, na, prev_s, G, prev2, m = _full_rounds(data2, sentinel)
+    k, si, rs, ac, na, prev_s, G, m = _full_rounds(data2, prev2, sentinel)
 
     micro_done = m == 0
     pos, r = _no_actives(si)
@@ -353,7 +363,8 @@ def _micro_state(data2: torch.Tensor, sentinel: str):
     emitters need plus the per-row ``resolved`` mask (True iff that row's
     residue fit the micro tail and fully refined).  No narrowing cascade."""
     cap3 = min(data2.shape[1], 4096)
-    k, si, rs, ac, na, prev_s, G, prev2, m = _full_rounds(data2, sentinel)
+    prev2 = torch.roll(data2, 1, dims=1)
+    k, si, rs, ac, na, prev_s, G, m = _full_rounds(data2, prev2, sentinel)
     if m == 0:
         return prev2, si, rs, prev_s, *_no_actives(si), torch.ones_like(na, dtype=torch.bool)
     mpos, mr, mna = _micro_tail(k, si, rs, ac, na, G, sentinel)
@@ -407,7 +418,8 @@ def bwt_batched_v3(data2: torch.Tensor, sentinel: str = SENT_SMALL):
     full-width narrowing cascade."""
     if data2.shape[1] <= 1:
         return _trivial(data2)[:2]
-    L, base, _ = _bwt_batched_v3_impl(data2, sentinel, want_rank=False)
+    L, base, _ = _bwt_batched_v3_impl(data2, torch.roll(data2, 1, dims=1), sentinel,
+                                      want_rank=False)
     return L, base
 
 
@@ -419,7 +431,8 @@ def bwt_batched_v3_certified(data2: torch.Tensor, sentinel: str = SENT_SMALL):
     certificate sort on top of the v3 pipeline."""
     if data2.shape[1] <= 1:
         return _trivial(data2)
-    L, base, rank = _bwt_batched_v3_impl(data2, sentinel, want_rank=True)
+    L, base, rank = _bwt_batched_v3_impl(data2, torch.roll(data2, 1, dims=1), sentinel,
+                                         want_rank=True)
     return L, base, verify_bwt_batched(data2, rank, L, base, sentinel)
 
 

@@ -1,11 +1,13 @@
 """Suffix ranks and the forward BWT (port of ``archon_tpu/core/fast2.py``;
 function names and structure are kept so each stage has its JAX namesake).
 
-Two pipelines share the stages: the rank pipeline (``_ranks_loop``: a
-bootstrap that inverts its ranks, full rounds that invert every round, the
-narrowed cascade; ``suffix_ranks_windows`` seeds it with caller windows for
-the a6 bit path) and ``bwt_v3`` (inversions deferred, the previous byte
-carried through every sort).
+This module holds the rank pipeline (``_ranks_loop``: a bootstrap that
+inverts its ranks, full rounds that invert every round, the narrowed
+cascade; ``suffix_ranks_windows`` seeds it with caller windows for the a6 bit
+path) and the formulas it shares with ``core.batched``.  The v3 forward BWT
+(inversions deferred, the previous byte carried through every sort) has one
+body, ``core.batched._bwt_batched_v3_impl``: ``bwt_v3`` and
+``bwt_v3_payload`` run it on one row.
 
 Every ``lax.sort`` site becomes ``ops.sort.sort_operands``, a stable sort: on
 CUDA tensors it runs the Hopper tile-sort and merge-level kernels.  The
@@ -25,7 +27,6 @@ from .doubling import SENT_SMALL, _heads, _invert_permutation, _iota, _quad_keys
 
 _BIG = 0x7FFFFFFF
 _EXT_BASE = 512
-_TILE = 32
 _I32 = torch.int32
 
 
@@ -184,30 +185,6 @@ def suffix_array_fast2(data, sentinel: str = SENT_SMALL, device="cuda"):
     return suffix_array_v2(as_byte_tensor(data, device), sentinel).cpu().numpy()
 
 
-def _bootstrap_sorted(data: torch.Tensor, prev: torch.Tensor, sentinel: str):
-    """Context-12 sort on four packed-trigram keys, without the rank
-    inversion: (sorted_idx, ranks_sorted, active flags, nactive, prev_sorted)."""
-    n = data.shape[0]
-    iota = _iota(n, data.device)
-    p27 = _trigram_keys(data, sentinel)
-    keys = [p27[3 * j : 3 * j + n] for j in range(4)]
-    *ks, sorted_idx, prev_s = _sort_ctx(keys, iota, (prev,))
-    ranks_sorted, active_s, nactive = _epilogue(ks, iota)
-    return sorted_idx, ranks_sorted, active_s, nactive, prev_s
-
-
-def _round_full_sorted(si, rs, prev, k: int, sentinel: str):
-    """Full quadrupling round from the previous round's sorted-order state:
-    the deferred rank inversion at its top, then the 4-key sort carrying
-    (iota, prev).  Also returns the inverted (context k/4) rank, the
-    snapshot the micro tail refines against."""
-    iota = _iota(si.shape[0], si.device)
-    rank = _invert_permutation(si, rs)
-    *ks, sorted_idx, prev_s = _sort_ctx(_quad_keys(rank, k, sentinel), iota, (prev,))
-    ranks_sorted, active_s, nactive = _epilogue(ks, iota)
-    return sorted_idx, ranks_sorted, active_s, nactive, prev_s, rank
-
-
 def _compact_from_round(sorted_idx, ranks_sorted, active_s, cap: int):
     """Active (position, group-head-rank) pairs from a round's sorted order,
     front-compacted to ``cap`` (-1 / _BIG beyond the active count)."""
@@ -288,65 +265,19 @@ def _narrow_cascade(rank, k: int, na: int, apos, ar0, sentinel: str, caps):
     return k, rank, na
 
 
-def _extract_actives_sorted(si, rs, ac, na: int, cap: int):
-    """Entry-active (position, group-head-rank) pairs when ``na <= cap``,
-    without a full-width compaction sort: reduce 32-wide tiles of the
-    round's sorted order, sort only the n/32 tile keys, gather the first
-    ``cap`` candidate tiles and compact at cap*32 width."""
-    n = si.shape[0]
-    if n <= cap * _TILE:
-        return _compact_from_round(si, rs, ac, cap)
-    T = -(-n // _TILE)
-    pad = T * _TILE - n
-    if pad:
-        ac = torch.cat([ac, ac.new_zeros(pad)])
-        si = torch.cat([si, si.new_full((pad,), -1)])
-        rs = torch.cat([rs, rs.new_full((pad,), _BIG)])
-    ac2, si2, rs2 = (x.reshape(T, _TILE) for x in (ac, si, rs))
-    tkey = (~ac2.any(dim=1)).to(_I32)
-    _, tidx = sort_operands((tkey,), (_iota(T, si.device),))
-    tidx = tidx[:cap]
-    g_ac = ac2[tidx].reshape(-1)
-    g_si = si2[tidx].reshape(-1)
-    g_rs = rs2[tidx].reshape(-1)
-    key = torch.where(g_ac, 0, 1).to(_I32)
-    _, apos, ar0 = sort_operands((key,), (torch.where(g_ac, g_si, -1), g_rs))
-    keep = _iota(cap, si.device) < na
-    return torch.where(keep, apos[:cap], -1), torch.where(keep, ar0[:cap], _BIG)
-
-
-def _micro_round(G, g: int, pos, r, j_lo: int, j_hi: int, sentinel: str):
-    """Inversion-free narrowed round over C actives: refines ranks ``r``
-    (context j_lo*g) to context j_hi*g by sorting on (r, G[p+j_lo*g], ...,
-    G[p+(j_hi-1)*g]) against the one consistent snapshot ``G``.  Returns
-    (sorted positions, refined ranks, still-active count)."""
-    n = G.shape[0]
-    C = pos.shape[0]
-    iota_c = _iota(C, G.device)
-    off_end = -1 if sentinel == SENT_SMALL else _BIG
-    valid = pos >= 0
-    safe = torch.where(valid, pos, 0)
-    keys = [torch.where(valid, r, _BIG)]
-    for j in range(j_lo, j_hi):
-        p = safe + j * g
-        keys.append(torch.where(valid & (p < n), G[p.clamp(max=n - 1)], off_end))
-    *ks, pos_s = sort_operands(keys, (torch.where(valid, pos, -1),))
-    r_new, still, pad = _refine_in_groups(ks, pos_s, iota_c)
-    return pos_s, torch.where(pad, _BIG, r_new), _count(still)
-
-
 def bwt_v3(data: torch.Tensor, sentinel: str = SENT_SMALL):
     """Forward BWT of ``data`` (uint8, on the device to run on): returns
     (L, base) with L a uint8 tensor on the same device and base an int.
 
-    Bootstrap (context 12) -> full rounds with the rank inversion deferred
-    to the top of the next round and the previous byte riding every sort.
-    When the text resolves inside the full rounds, L is the carried payload.
+    The batched v3 program (``core.batched``) on one row: bootstrap
+    (context 12) -> full rounds with the rank inversion deferred to the top
+    of the next round and the previous byte riding every sort.  When the
+    text resolves inside the full rounds, L is the carried payload.
     Otherwise a residue of <= 4096 actives takes the inversion-free micro
     tail, and larger or deeper residues the narrowed cascade."""
     if data.shape[0] <= 1:
         return data, 0
-    return _bwt_v3_impl(data, torch.roll(data, 1), sentinel)
+    return bwt_v3_payload(data, torch.roll(data, 1), sentinel)
 
 
 def bwt_v3_payload(data: torch.Tensor, payload: torch.Tensor, sentinel: str = SENT_SMALL):
@@ -354,48 +285,7 @@ def bwt_v3_payload(data: torch.Tensor, payload: torch.Tensor, sentinel: str = SE
     payload[p]; ``bwt_v3`` is the case payload = roll(data, 1)."""
     if data.shape[0] <= 1:
         return payload, 0
-    return _bwt_v3_impl(data, payload, sentinel)
+    from .batched import _bwt_batched_v3_impl  # batched imports this module
 
-
-def _scatter_fix(L, pos, ranks, prev):
-    """L[ranks] = prev[pos] at the valid (pos >= 0) entries."""
-    L = L.clone()
-    valid = pos >= 0
-    L[ranks[valid]] = prev[pos[valid]]
-    return L
-
-
-def _bwt_v3_impl(data: torch.Tensor, prev: torch.Tensor, sentinel: str):
-    n = data.shape[0]
-    cap1, cap2, cap3 = _narrow_caps(n)
-
-    si, rs, ac, na, prev_s = _bootstrap_sorted(data, prev, sentinel)
-    # G: position-indexed granule-(k/4) consistent keys -- the packed
-    # trigrams at bootstrap exit, the last inverted rank after full rounds.
-    G = _trigram_keys(data, sentinel)[:n]
-    k = 12
-    while na * 16 > n and na > 0 and k < n:
-        si, rs, ac, na, prev_s, G = _round_full_sorted(si, rs, prev, k, sentinel)
-        k *= 4
-
-    b_slot = torch.argmax((si == 0).to(_I32))
-    if na == 0:  # resolved inside the full rounds
-        return prev_s, int(rs[b_slot])
-
-    if na <= cap3:  # micro tail: no full-width sort, no inversion
-        apos_m, ar0_m = _extract_actives_sorted(si, rs, ac, na, cap3)
-        g = max(k // 4, 1)
-        pos1, r1m, _ = _micro_round(G, g, apos_m, ar0_m, 4, 16, sentinel)
-        mpos, mr, mna = _micro_round(G, g, pos1, r1m, 16, 64, sentinel)
-        if mna == 0:
-            L = _scatter_fix(prev_s, mpos, mr, prev)
-            at0 = torch.where((mpos == 0), mr, -1).max()
-            return L, max(int(rs[b_slot]), int(at0))
-
-    # narrowed cascade; resolved suffixes' ranks never moved, so only the
-    # entry actives' payload slots need correcting
-    rank = _invert_permutation(si, rs)
-    apos0, ar0 = _compact_from_round(si, rs, ac, cap1)
-    k, rank, _ = _narrow_cascade(rank, k, na, apos0, ar0, sentinel, (cap1, cap2, cap3))
-    final_r = rank[apos0.clamp(min=0)]
-    return _scatter_fix(prev_s, apos0, final_r, prev), int(rank[0])
+    L, base, _ = _bwt_batched_v3_impl(data[None], payload[None], sentinel, want_rank=False)
+    return L[0], int(base[0])

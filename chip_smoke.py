@@ -342,21 +342,24 @@ def _text_block_sorts(block: bytes) -> dict:
     """The full-width sorts ``bwt_v3`` runs on one text block, as the main
     path gives them (the block reversed, a4): the bootstrap's four
     packed-trigram keys and each full round's four rank keys, with the index
-    and the previous byte as payloads.  Captured at ``fast2._sort_ctx``."""
-    from archon_tpu_torch.core import fast2
+    and the previous byte as payloads.  Captured at ``sort_rows`` as
+    ``core.batched`` binds it, the one row of each operand."""
+    from archon_tpu_torch.core import batched, fast2
 
+    arr = _reversed_block(block)
     seen = []
-    sort_ctx = fast2._sort_ctx
+    sort_rows = batched.sort_rows
 
-    def capture(keys, iota, payloads):
-        seen.append((list(keys), [iota, *payloads]))
-        return sort_ctx(keys, iota, payloads)
+    def capture(keys, payloads=()):
+        if len(keys) == 4 and keys[0].shape[1] == arr.shape[0]:
+            seen.append(([k[0] for k in keys], [p[0] for p in payloads]))
+        return sort_rows(keys, payloads)
 
-    fast2._sort_ctx = capture
+    batched.sort_rows = capture
     try:
-        fast2.bwt_v3(_reversed_block(block), "small")
+        fast2.bwt_v3(arr, "small")
     finally:
-        fast2._sort_ctx = sort_ctx
+        batched.sort_rows = sort_rows
     if len(seen) < 2:
         raise AssertionError(f"bwt_v3 ran {len(seen)} full-width sorts on a text block, not 2+")
     return {("bootstrap trigram keys" if i == 0 else f"full round {i} rank keys"): s
@@ -533,7 +536,7 @@ def _encode_checked(label, data, generation, block_size, verify=True, impl="stre
 def phase_main():
     """The port's stream path; returns the kernel launch counts of the 64 MiB
     run, the text, and the stream's containers and seconds by run."""
-    from archon_tpu_torch.core import fast2
+    from archon_tpu_torch.core import batched
     from archon_tpu_torch.ops import sort as S
 
     data = synthetic_text(64 * MIB, seed=7)
@@ -558,7 +561,7 @@ def phase_main():
     # ~3800 actives tied past the micro tail's reach -> micro, then cascade
     block = planted_repeat_block()
     seen = {"micro": 0, "cascade": 0}
-    orig_micro, orig_cascade = fast2._micro_round, fast2._narrow_cascade
+    orig_micro, orig_cascade = batched._micro_round2, batched._narrow_cascade2
 
     def micro(*a, **kw):
         seen["micro"] += 1
@@ -568,11 +571,11 @@ def phase_main():
         seen["cascade"] += 1
         return orig_cascade(*a, **kw)
 
-    fast2._micro_round, fast2._narrow_cascade = micro, cascade
+    batched._micro_round2, batched._narrow_cascade2 = micro, cascade
     try:
         _encode_checked("a4 1 MiB planted repeat", block, "a4", MIB)
     finally:
-        fast2._micro_round, fast2._narrow_cascade = orig_micro, orig_cascade
+        batched._micro_round2, batched._narrow_cascade2 = orig_micro, orig_cascade
     print(f"[main] planted repeat took micro rounds {seen['micro']}, cascade {seen['cascade']}")
     if not (seen["micro"] and seen["cascade"]):
         raise AssertionError(f"planted repeat missed the micro tail or the cascade: {seen}")
@@ -925,7 +928,8 @@ def phase_batched(text: bytes, stream: dict) -> dict:
               f"(CUDA events, incl. its host syncs); rounds {batched.stats.rounds}, host syncs "
               f"{batched.stats.host_syncs}, launches {unit_launches}, peak device memory "
               f"{torch.cuda.max_memory_allocated() / MIB:.0f} MiB")
-    L, base, rank = batched._bwt_batched_v3_impl(data2, "small", want_rank=True)
+    L, base, rank = batched._bwt_batched_v3_impl(data2, torch.roll(data2, 1, dims=1), "small",
+                                                 want_rank=True)
     cert_ms = _time_ms(lambda: batched.verify_bwt_batched(data2, rank, L, base, "small"))
     ok = batched.verify_bwt_batched(data2, rank, L, base, "small")
     bad_L = L.clone()
@@ -1174,12 +1178,15 @@ def _reversed_block(block: bytes):
 def _block_call(tag, label, fn, calls=TIMED_CALLS):
     """One call of a 1-D sorter apart: a first call counted for its rounds,
     host syncs and kernel launches, then ms over ``calls`` more by CUDA
-    events.  Returns (result, ms, launches)."""
-    from archon_tpu_torch.core import doubling
+    events.  Returns (result, ms, launches).  ``bwt_v3`` counts in
+    ``core.batched.stats``, the other 1-D sorters in ``core.doubling.stats``."""
+    from archon_tpu_torch.core import batched, doubling
 
     doubling.stats.reset()
+    batched.stats.reset()
     out, _, launches = _counted(label, fn)
-    rounds, syncs = doubling.stats.rounds, doubling.stats.host_syncs
+    rounds = doubling.stats.rounds + batched.stats.rounds
+    syncs = doubling.stats.host_syncs + batched.stats.host_syncs
     ms = _events_ms(fn, calls)
     print(f"[{tag}] {label}: {ms:.3f} ms (CUDA events over {calls} call(s), incl. its host syncs); "
           f"rounds {rounds}, host syncs {syncs}, launches {launches}")

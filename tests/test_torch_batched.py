@@ -207,6 +207,30 @@ def test_unresolved_batch_matches_jax(name, sentinel):
         assert got["L"][1].tolist() == want_L.tolist() and int(got["base"][1]) == int(want_base)
 
 
+@pytest.mark.parametrize("batch", ["micro", "cascade"])
+def test_v3_body_carries_a_caller_payload(batch):
+    """``_bwt_batched_v3_impl`` with a payload other than the roll, on more
+    than one row (the a6 entry ``fast2.bwt_v3_payload`` runs it on one):
+    each row equals ``bwt_v3_payload`` of that row, the port's and JAX's,
+    whether the batch leaves through the micro tail or the cascade."""
+    from archon_tpu.core import fast2 as jf
+    from archon_tpu_torch.core import fast2 as tf
+
+    rng = np.random.default_rng(31)
+    if batch == "micro":
+        rows = rng.integers(0, 3, (2, 4000), dtype=np.uint8)
+    else:
+        rows = _unresolved_rows()
+    pay = rng.integers(0, 256, rows.shape, dtype=np.uint8)
+    L2, base2, _ = tb._bwt_batched_v3_impl(_t(rows), _t(pay), "large", want_rank=False)
+    for b in range(rows.shape[0]):
+        L, base = tf.bwt_v3_payload(_t(rows[b]), _t(pay[b]), "large")
+        jL, jbase = jf.bwt_v3_payload(jnp.asarray(rows[b]), jnp.asarray(pay[b]), "large")
+        _same(L2[b], jL, f"row {b} against JAX")
+        _same(L, jL, f"row {b} alone against JAX")
+        assert int(base2[b]) == base == int(jbase), b
+
+
 def test_trivial_widths_match_jax():
     for n in (0, 1):
         rows = np.full((3, n), 7, np.uint8)

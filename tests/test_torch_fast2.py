@@ -3,9 +3,11 @@
 Same numpy inputs through both packages; every comparison is exact (integer
 outputs, tolerance 0).  Stage by stage, every intermediate of the sorted-
 order state (si, rs, ac, na, prev_s, ranks, active sets) must match bit for
-bit: the port's sort is stable exactly where ``lax.sort`` is.  Then ``bwt_v3``
-end to end on the cases of tests/test_fast2.py, against JAX and the golden
-model, for both sentinels.
+bit: the port's sort is stable exactly where ``lax.sort`` is.  The port's
+v3 stages are the batched ones (``core.batched``, which ``bwt_v3`` runs on
+one row), held on one row against JAX's 1-D stages.  Then ``bwt_v3`` end to
+end on the cases of tests/test_fast2.py, against JAX and the golden model,
+for both sentinels.
 """
 
 import numpy as np
@@ -17,6 +19,7 @@ import jax.numpy as jnp
 from archon_tpu.core import fast2 as jf
 from archon_tpu.golden import sa as golden
 from archon_tpu.utils.corpus import gauntlet_cases, text_like
+from archon_tpu_torch.core import batched as tb
 from archon_tpu_torch.core import fast2 as tf
 
 
@@ -49,19 +52,20 @@ def test_stages_match_jax(name):
     n = len(arr)
     prev = np.roll(arr, 1)
     t = lambda a: torch.tensor(np.asarray(a))  # noqa: E731  (copies: the port scatters in place)
+    row = lambda a: t(a)[None]  # noqa: E731  (one row of the batched stages)
 
     _same(tf._trigram_keys(t(arr), sent), jf._trigram_keys(jnp.asarray(arr), sent), "p27")
 
-    got = tf._bootstrap_sorted(t(arr), t(prev), sent)
+    got = tb._bootstrap_sorted2(row(arr), row(prev), sent)
     want = jf._bootstrap_sorted(jnp.asarray(arr), jnp.asarray(prev), sent)
     for g, w, what in zip(got, want, ("si", "rs", "ac", "na", "prev_s")):
-        _same(g, w, f"bootstrap {what}")
+        _same(g[0], w, f"bootstrap {what}")
     si, rs, ac, _, _ = want
 
-    got = tf._round_full_sorted(t(si), t(rs), t(prev), 12, sent)
+    got = tb._round_full_sorted2(row(si), row(rs), row(prev), 12, sent)
     want = jf._round_full_sorted(si, rs, jnp.asarray(prev), 12, sent)
     for g, w, what in zip(got, want, ("si", "rs", "ac", "na", "prev_s", "rank")):
-        _same(g, w, f"full round {what}")
+        _same(g[0], w, f"full round {what}")
     si, rs, ac, na, _, G = want
     na = int(na)
     assert na > 0, "the stage input must leave actives after the first round"
@@ -74,17 +78,17 @@ def test_stages_match_jax(name):
         for g, w in zip(got, want):
             _same(g, w, f"compact cap={cap}")
     cap = 128  # n > cap * 32: the tiled extraction path
-    got = tf._extract_actives_sorted(t(si), t(rs), t(ac), na, cap)
+    got = tb._extract_actives_sorted2(row(si), row(rs), row(ac), t([na]), cap)
     want = jf._extract_actives_sorted(si, rs, ac, na, cap)
     for g, w in zip(got, want):
-        _same(g, w, "extract actives")
+        _same(g[0], w, "extract actives")
 
     apos, ar0 = jf._extract_actives_sorted(si, rs, ac, na, cap3)
     for j_lo, j_hi in ((4, 16), (16, 64)):
-        got = tf._micro_round(t(G), 12, t(apos), t(ar0), j_lo, j_hi, sent)
+        got = tb._micro_round2(row(G), 12, row(apos), row(ar0), j_lo, j_hi, sent)
         want = jf._micro_round(G, 12, apos, ar0, j_lo, j_hi, sent)
         for g, w, what in zip(got, want, ("pos", "r", "na")):
-            _same(g, w, f"micro {j_lo}-{j_hi} {what}")
+            _same(g[0], w, f"micro {j_lo}-{j_hi} {what}")
 
     rank = jf._invert_permutation(si, rs)
     apos, ar0 = jf._compact_from_round(si, rs, ac, cap1)
@@ -151,8 +155,9 @@ def test_bwt_v3_three_cap_cascade_matches_golden(monkeypatch):
     """n > 2^20: three distinct narrowing capacities (n/16, n/256, 4096).
     A twice-planted 3000-byte segment and a 4000-byte run leave ~10^4
     actives after the bootstrap (past the micro tail's reach, under n/16):
-    the cascade runs rounds at cap1, re-compacts to cap2 and to cap3 and
-    resolves there.  Held against the golden model."""
+    the batched cascade that ``bwt_v3`` runs on its one row runs rounds at
+    cap1, re-compacts to cap2 and to cap3 and resolves there.  Held against
+    the golden model."""
     n = (1 << 20) + (1 << 14)
     cap1, cap2, cap3 = tf._narrow_caps(n)
     assert cap1 > cap2 > cap3
@@ -163,18 +168,18 @@ def test_bwt_v3_three_cap_cascade_matches_golden(monkeypatch):
     arr[600_000:603_000] = seg
     arr[200_000:204_000] = 97
     widths = []
-    round_c, recompact = tf._round_active_c, tf._recompact
+    round_c, recompact = tb._round_active2c, tb._recompact2
 
     def counted_round(rank, apos, *rest):
-        widths.append(apos.shape[0])
+        widths.append(apos.shape[1])
         return round_c(rank, apos, *rest)
 
-    def counted_recompact(apos, ar0, na, cap_to):
-        widths.append(cap_to)
-        return recompact(apos, ar0, na, cap_to)
+    def counted_recompact(apos, ar0, na, cap):
+        widths.append(cap)
+        return recompact(apos, ar0, na, cap)
 
-    monkeypatch.setattr(tf, "_round_active_c", counted_round)
-    monkeypatch.setattr(tf, "_recompact", counted_recompact)
+    monkeypatch.setattr(tb, "_round_active2c", counted_round)
+    monkeypatch.setattr(tb, "_recompact2", counted_recompact)
     L, base = tf.bwt_v3(torch.tensor(arr), "small")
     assert cap1 in widths and cap2 in widths and widths[-1] == cap3
     want_L, want_base = golden.bwt_forward(arr, "small")

@@ -140,8 +140,8 @@ def test_formats_encode_takes_the_device_certificate(generation, monkeypatch):
     assert formats.encode(data, generation, verify=False, device="cpu") == want
     real = batched._bwt_batched_v3_impl
 
-    def corrupt(data2, sentinel, want_rank):
-        out = real(data2, sentinel, want_rank)
+    def corrupt(data2, prev2, sentinel, want_rank):
+        out = real(data2, prev2, sentinel, want_rank)
         out[0][0, 1234] ^= 0xFF
         return out
 

@@ -9,7 +9,9 @@
 //   K2 merge_partition_kernel  <- _merge_partition (:211)
 //      merge_level_kernel      <- _merge_level (:317) / _merge_kernel (:265)
 // K2 is the two launches of one archon_merge_level call: the split pass,
-// then the merge.
+// then the merge.  The file also holds the sharded megablock's stage merge
+// (stage_split_kernel + stage_merge_kernel, archon_stage_merge), which
+// replaces no TPU kernel and shares K2's device helpers; see its section.
 //
 // Data model: carried tuples.  Like the Pallas kernels, which carry their
 // operand values through every level, both kernels move (key_0 .. key_{C-1},
@@ -424,6 +426,223 @@ int launch_merge_level(const Keys& ks, const int32_t* in, int32_t* out, int32_t*
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+// ------------------------------------------------------------------ the stage merge
+//
+// One bitonic merge-split stage of the sharded megablock
+// (parallel/megablock.py _merge_split_sort), driven by ops/sort.py
+// stage_merge.  For each row b: the low S, or the high S, of the stable merge
+// of two runs sorted by K <= kStageMaxKeys int32 keys, A = row b of this
+// shard's operands ("mine") and B = row src[b] of the partner's, A first on
+// equal keys; at most one payload (4 or 1 bytes an element) rides along.  It
+// replaces no TPU kernel: the JAX program re-sorts [mine, partner] with
+// lax.sort at every stage.
+//
+// Bound: each kept element's columns read once and written once, 2 * S *
+// (4K + payload bytes) a row: 4.0 GB for a 5-key stage at (8, 12.5M), 1.19 ms
+// at 3.35 TB/s.  The K2 form it replaces moved some ten times that (the
+// partner's copy, the [mine, partner] concatenation, the key matrix, the
+// padded tuple buffer with its index row, the merge of both halves, the
+// gather of the keys past the fourth and of the payload, the select).  So
+// nothing is built around the merge:
+// - stage_split_kernel finds the merge-path split of each output tile of a
+//   row, one warp a tile point, by the 32-way ballot search of K2's split
+//   pass, reading the key columns straight from the A and B rows, starting
+//   at diagonal 0 (keep low) or S (keep high);
+// - stage_merge_kernel stages its tile's A and B key slices in shared memory
+//   with cp.async, merges there comparing all K keys (no tuple, no index, no
+//   key read by index), keeps each output's source slot, then writes every
+//   key column from shared memory and the payload from its source row, each
+//   a coalesced pass over the tile's outputs.  Only the kept S outputs are
+//   computed; the last tile of a row is masked, not padded.
+// The source-row map and the operands' row pointers travel by value in the
+// launch arguments (StageArgs), so no index tensor is copied to the card.
+
+constexpr int kStageMaxKeys = 5;                      // STAGE_MAX_KEYS in ops/sort.py
+constexpr int kStageMaxRows = 256;                    // STAGE_MAX_ROWS in ops/sort.py
+constexpr int kStageTile = kMergeTile;                // outputs per merge block
+constexpr int kStagePoints = kPartitionThreads / 32;  // split points per split-pass block
+
+struct StageArgs {
+  const int32_t* a[kStageMaxKeys];  // mine: key c of row b at a[c] + b * a_stride[c]
+  const int32_t* b[kStageMaxKeys];  // the partner: row src[b] at b[c] + src[b] * b_stride[c]
+  int32_t* out[kStageMaxKeys];      // (rows, S), contiguous
+  int64_t a_stride[kStageMaxKeys];
+  int64_t b_stride[kStageMaxKeys];
+  const uint8_t* a_pay;             // payload rows, strides in elements
+  const uint8_t* b_pay;
+  uint8_t* out_pay;
+  int64_t a_pay_stride, b_pay_stride;
+  int pay_bytes;                    // 0 (no payload), 1 or 4
+  const bool* keep_low;             // (rows, 1)
+  int32_t* splits;                  // (rows, tiles + 1): A elements before each tile point
+  int64_t S;
+  int rows, tiles;
+  int32_t src[kStageMaxRows];
+};
+
+// A <= B on K keys, A's element i and B's element j of a row pair in device memory.
+template <int K>
+__device__ __forceinline__ bool stage_le_ldg(const int32_t* const (&a)[K], int64_t i,
+                                             const int32_t* const (&b)[K], int64_t j) {
+#pragma unroll
+  for (int c = 0; c < K; ++c) {
+    const int32_t x = __ldg(a[c] + i), y = __ldg(b[c] + j);
+    if (x != y) return x < y;
+  }
+  return true;
+}
+
+// The first m of [lo, hi) where pred(m) is false, pred true on a prefix, by
+// one warp: warp_merge_path's 32-way ballot search for any predicate.
+template <typename Pred>
+__device__ int warp_partition(int lo, int hi, Pred pred) {
+  const int lane = threadIdx.x & 31;
+  while (lo < hi) {
+    const int m = lo + (int)(((int64_t)(hi - lo) * lane) >> 5);
+    const int taken = __popc(__ballot_sync(0xffffffffu, pred(m)));
+    const int m_last = __shfl_sync(0xffffffffu, m, (taken + 31) & 31);
+    const int m_next = __shfl_sync(0xffffffffu, m, taken & 31);
+    if (taken == 0) {
+      hi = lo;
+    } else {
+      lo = m_last + 1;
+      if (taken < 32) hi = m_next;
+    }
+  }
+  return lo;
+}
+
+// Stage split pass: splits[row][k] = the number of A elements among the
+// first d outputs of merge(A, B), d = (keep low ? 0 : S) + min(k * kStageTile, S).
+template <int K>
+__global__ void __launch_bounds__(kPartitionThreads) stage_split_kernel(const StageArgs p) {
+  const int points = p.tiles + 1;
+  const int64_t w = (int64_t)blockIdx.x * kStagePoints + (threadIdx.x >> 5);
+  if (w >= (int64_t)p.rows * points) return;  // whole warps only: the search ballots
+  const int row = (int)(w / points);
+  const int64_t S = p.S;
+  const int diag = (int)((p.keep_low[row] ? 0 : S) + min((int64_t)(w % points) * kStageTile, S));
+  const int64_t src = p.src[row];
+  const int32_t* a[K];
+  const int32_t* b[K];
+#pragma unroll
+  for (int c = 0; c < K; ++c) {
+    a[c] = p.a[c] + row * p.a_stride[c];
+    b[c] = p.b[c] + src * p.b_stride[c];
+  }
+  // pred(m): A[m] goes before B[diag - 1 - m], so it is among the first diag outputs
+  const int split = warp_partition((int)max((int64_t)0, diag - S), (int)min((int64_t)diag, S),
+                                   [&](int m) { return stage_le_ldg<K>(a, m, b, diag - 1 - m); });
+  if ((threadIdx.x & 31) == 0) p.splits[w] = split;
+}
+
+// A stage element in the merge block: its keys and its slot in the staged tile.
+template <int K>
+struct StageKey {
+  int32_t k[K];
+  int slot;
+};
+
+// Stage merge: block (row, tile) writes the row's outputs [tile * kStageTile,
+// + n) from the A slice [a0, a1) and the B slice that the splits at its two
+// ends give.  Dynamic shared memory: K key rows of kMergeRow words (slots
+// [0, na) the A slice, [na, n) the B slice), then each output's slot.
+template <int K>
+__global__ void __launch_bounds__(kMergeThreads, kMergeBlocks) stage_merge_kernel(const StageArgs p) {
+  extern __shared__ int4 smem4[];
+  int32_t* s = reinterpret_cast<int32_t*>(smem4);
+  uint16_t* from = reinterpret_cast<uint16_t*>(s + K * kMergeRow);
+  const int row = blockIdx.x / p.tiles;
+  const int tile = blockIdx.x % p.tiles;
+  const int64_t S = p.S;
+  const int64_t d0 = (int64_t)tile * kStageTile;  // the tile's first output in the row
+  const int n = (int)min((int64_t)kStageTile, S - d0);
+  const int32_t* sp = p.splits + (int64_t)row * (p.tiles + 1) + tile;
+  const int a0 = sp[0];
+  const int na = sp[1] - a0;
+  const int64_t b0 = (p.keep_low[row] ? 0 : S) + d0 - a0;  // the B slice's first element
+  const int64_t src = p.src[row];
+#pragma unroll
+  for (int t = 0; t < kMergeItems; ++t) {
+    const int i = threadIdx.x + t * kMergeThreads;
+    if (i < n) {
+      const int q = sp32(i);
+#pragma unroll
+      for (int c = 0; c < K; ++c) {
+        const int32_t* g = i < na ? p.a[c] + row * p.a_stride[c] + a0 + i
+                                  : p.b[c] + src * p.b_stride[c] + b0 + (i - na);
+        __pipeline_memcpy_async(s + c * kMergeRow + q, g, 4);
+      }
+    }
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
+  const int diag = threadIdx.x * kMergeItems;
+  if (diag < n) {
+    const auto load = [&](int i) {
+      StageKey<K> x;
+#pragma unroll
+      for (int c = 0; c < K; ++c) x.k[c] = s[c * kMergeRow + sp32(i)];
+      x.slot = i;
+      return x;
+    };
+    const auto le = [](const StageKey<K>& x, const StageKey<K>& y) {  // x before y: A first on ties
+#pragma unroll
+      for (int c = 0; c < K; ++c)
+        if (x.k[c] != y.k[c]) return x.k[c] < y.k[c];
+      return true;
+    };
+    const int a = merge_path(0, na, na, n - na, diag, [&](int i, int j) {
+      const int pi = sp32(i), pj = sp32(j);
+#pragma unroll
+      for (int c = 0; c < K; ++c) {
+        const int32_t x = s[c * kMergeRow + pi], y = s[c * kMergeRow + pj];
+        if (x != y) return x < y;
+      }
+      return true;
+    });
+    StageKey<K> v[kMergeItems];
+    serial_merge(a, na, na + diag - a, n, v, load, le);
+#pragma unroll
+    for (int t = 0; t < kMergeItems; ++t)
+      if (diag + t < n) from[diag + t] = (uint16_t)v[t].slot;
+  }
+  __syncthreads();
+
+  const int64_t o = row * S + d0;
+#pragma unroll
+  for (int c = 0; c < K; ++c)
+    for (int j = threadIdx.x; j < n; j += kMergeThreads)
+      p.out[c][o + j] = s[c * kMergeRow + sp32(from[j])];
+  if (p.pay_bytes == 0) return;
+  const uint8_t* pa = p.a_pay + (row * p.a_pay_stride + a0) * p.pay_bytes;
+  const uint8_t* pb = p.b_pay + (src * p.b_pay_stride + b0) * p.pay_bytes;
+  for (int j = threadIdx.x; j < n; j += kMergeThreads) {
+    const int f = from[j];
+    const uint8_t* g = f < na ? pa + f * p.pay_bytes : pb + (f - na) * p.pay_bytes;
+    if (p.pay_bytes == 4)
+      reinterpret_cast<int32_t*>(p.out_pay)[o + j] = __ldg(reinterpret_cast<const int32_t*>(g));
+    else
+      p.out_pay[o + j] = __ldg(g);
+  }
+}
+
+template <int K>
+int launch_stage_merge(const StageArgs& p, cudaStream_t stream) {
+  const int64_t points = (int64_t)p.rows * (p.tiles + 1);
+  stage_split_kernel<K><<<(unsigned)((points + kStagePoints - 1) / kStagePoints),
+                          kPartitionThreads, 0, stream>>>(p);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int bytes = K * kMergeRow * (int)sizeof(int32_t) + kStageTile * (int)sizeof(uint16_t);
+  e = cudaFuncSetAttribute(stage_merge_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return (int)e;
+  stage_merge_kernel<K><<<(unsigned)((int64_t)p.rows * p.tiles), kMergeThreads, bytes, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  keys is the (K, n) matrix, tuple
@@ -461,5 +680,50 @@ extern "C" int archon_merge_level(const int32_t* keys, int64_t n, int K, int C, 
     case 2: return launch_merge_level<2>(ks, in, out, splits, n_pad, run, st);
     case 3: return launch_merge_level<3>(ks, in, out, splits, n_pad, run, st);
     default: return launch_merge_level<4>(ks, in, out, splits, n_pad, run, st);
+  }
+}
+
+// One merge-split stage (see "the stage merge" above).  a_keys, b_keys and
+// out_keys hold K column pointers and a_strides, b_strides their row strides
+// (elements; columns contiguous); the payload pointers are null when
+// pay_bytes is 0; src holds `rows` partner rows; splits is int32 scratch of
+// rows * (ceil(S / 2048) + 1) words.  Host arrays are read before the call
+// returns: they travel to the card in the launch arguments.
+extern "C" int archon_stage_merge(const int32_t* const* a_keys, const int64_t* a_strides,
+                                  const int32_t* const* b_keys, const int64_t* b_strides,
+                                  int32_t* const* out_keys, int K, const void* a_pay,
+                                  int64_t a_pay_stride, const void* b_pay, int64_t b_pay_stride,
+                                  void* out_pay, int pay_bytes, const int32_t* src, int rows,
+                                  int64_t S, const bool* keep_low, int32_t* splits, void* stream) {
+  if (K < 1 || K > kStageMaxKeys || rows < 1 || rows > kStageMaxRows || S < 1 ||
+      S >= (int64_t{1} << 30) || (pay_bytes != 0 && pay_bytes != 1 && pay_bytes != 4))
+    return (int)cudaErrorInvalidValue;
+  StageArgs p = {};
+  for (int c = 0; c < K; ++c) {
+    p.a[c] = a_keys[c];
+    p.b[c] = b_keys[c];
+    p.out[c] = out_keys[c];
+    p.a_stride[c] = a_strides[c];
+    p.b_stride[c] = b_strides[c];
+  }
+  p.a_pay = static_cast<const uint8_t*>(a_pay);
+  p.b_pay = static_cast<const uint8_t*>(b_pay);
+  p.out_pay = static_cast<uint8_t*>(out_pay);
+  p.a_pay_stride = a_pay_stride;
+  p.b_pay_stride = b_pay_stride;
+  p.pay_bytes = pay_bytes;
+  p.keep_low = keep_low;
+  p.splits = splits;
+  p.S = S;
+  p.rows = rows;
+  p.tiles = (int)((S + kStageTile - 1) / kStageTile);
+  for (int r = 0; r < rows; ++r) p.src[r] = src[r];
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (K) {
+    case 1: return launch_stage_merge<1>(p, st);
+    case 2: return launch_stage_merge<2>(p, st);
+    case 3: return launch_stage_merge<3>(p, st);
+    case 4: return launch_stage_merge<4>(p, st);
+    default: return launch_stage_merge<5>(p, st);
   }
 }

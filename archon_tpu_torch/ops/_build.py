@@ -79,6 +79,9 @@ def _load() -> None:
     lib.archon_sort_tiles.argtypes = [ptr, i64, i32, i32, ptr, i64, ptr]
     lib.archon_merge_level.restype = i32
     lib.archon_merge_level.argtypes = [ptr, i64, i32, i32, ptr, ptr, ptr, i64, i64, ptr]
+    lib.archon_stage_merge.restype = i32
+    lib.archon_stage_merge.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, ptr, i64, ptr, i64, ptr, i32,
+                                       ptr, i32, i64, ptr, ptr, ptr]
     lib.archon_pack_mtf_rle.restype = i32
     lib.archon_pack_mtf_rle.argtypes = [ptr, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr]
     lib.archon_pack_words.restype = i32

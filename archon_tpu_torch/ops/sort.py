@@ -38,9 +38,13 @@ or run pair; ``sort_operands_ref`` and ``sort_rows_ref``: stable passes from
 the last key to the first, then gathers).  A wrapper takes its twin only for
 tensors on the CPU; on a CUDA tensor it launches its kernel or raises.  To
 inspect a path without the kernels, give it CPU tensors or call the twins.
-``merge_rows`` is the one-level form for rows that are two sorted runs each
-(the megablock's merge-split stages): K2 alone, once, each run padded to a
-multiple of ``MERGE_TILE // 2`` the way ``sort_rows`` pads a row.
+``merge_rows`` is the one-level form for rows that are two sorted runs each:
+K2 alone, once, each run padded to a multiple of ``MERGE_TILE // 2`` the way
+``sort_rows`` pads a row.  ``stage_merge`` is the sharded megablock's
+merge-split stage as one op: a split pass and a merge of its own
+(``csrc/sort.cu``, no TPU counterpart) that read both runs where they lie and
+write only the kept half; its twin ``stage_merge_ref`` concatenates, sorts by
+``sort_rows_ref`` and selects; ``stage_merge.launches`` counts its calls.
 ``sort_tiles.launches`` and ``merge_level.launches`` count kernel launches,
 ``sort_tiles.bytes`` and ``merge_level.bytes`` the bytes those launches need
 (see ``sort_tiles`` and ``merge_level``).
@@ -342,8 +346,9 @@ def merge_rows(keys, payloads=()) -> list:
     """``sort_rows`` for (B, 2S) operands whose rows are each two runs of S
     already sorted by ``keys``: the same result (a merge of sorted runs by
     (keys..., index) is the stable sort of the row) by ONE K2 level for all
-    rows and no K1, at any S.  The sharded megablock's merge-split stages are
-    this shape: ``[mine, partner]``, both sorted.  Rows that are not two
+    rows and no K1, at any S.  A merge-split stage of the sharded megablock
+    is this shape, ``[mine, partner]`` with both sorted, before it keeps one
+    half (``stage_merge`` merges only that half).  Rows that are not two
     sorted runs come out unsorted, unchecked.
 
     ``merge_rows.calls`` counts the calls that reach the kernels' layout and
@@ -418,3 +423,90 @@ def _merge_rows_kernels(keys: list, payloads: list) -> list:
     perm = tuples[C]  # a real tuple's index is its operand's column in mat
     return ([tuples[c] for c in range(C)] + [k.reshape(-1)[perm] for k in keys[C:]]
             + [p.reshape(-1)[perm] for p in payloads])
+
+
+STAGE_MAX_KEYS = 5  # keys the stage merge compares, kStageMaxKeys in csrc/sort.cu
+STAGE_MAX_ROWS = 256  # rows of one stage merge launch, kStageMaxRows in csrc/sort.cu
+STAGE_PAYLOADS = (torch.int32, torch.uint8)  # payload types the stage merge carries
+
+
+def stage_merge_ref(mine, partner, rows, keep_low, num_keys: int) -> list:
+    """Plain twin of ``stage_merge``: ``[mine, partner]`` concatenated, the
+    stable sort of each row (``sort_rows_ref``), and the kept half selected."""
+    S = mine[0].shape[1]
+    both = [torch.cat([a, torch.stack([b[r] for r in rows])], dim=1) for a, b in zip(mine, partner)]
+    merged = sort_rows_ref(both[:num_keys], both[num_keys:])
+    return [torch.where(keep_low, mg[:, :S], mg[:, S:]) for mg in merged]
+
+
+def stage_merge(mine, partner, rows, keep_low, num_keys: int) -> list:
+    """One merge-split stage of the sharded megablock.  ``mine`` and
+    ``partner`` are the operands (``num_keys`` int32 keys, then payloads),
+    each row of each sorted by the keys; ``mine``'s are (B, S), the
+    partner's (R, S), and the partner of row b is row ``rows[b]`` (a list of
+    ints).  Row b of each result is the low S (``keep_low[b]``, a (B, 1) bool
+    tensor) or the high S of the stable merge of row b of ``mine`` with its
+    partner, ``mine`` first on equal keys: ``stage_merge_ref``'s result.
+
+    On CUDA it is one launch of ``stage_split_kernel`` and one of
+    ``stage_merge_kernel`` (``csrc/sort.cu``), which read the partner's rows
+    where they lie and write only the kept half: at most ``STAGE_MAX_KEYS``
+    keys, one payload of a ``STAGE_PAYLOADS`` type, ``STAGE_MAX_ROWS`` rows,
+    columns of stride 1.  ``stage_merge.launches`` counts those calls; K1's
+    and K2's counters are not touched."""
+    mine, partner, rows = list(mine), list(partner), [int(r) for r in rows]
+    if not 1 <= num_keys <= len(mine) or len(partner) != len(mine):
+        raise ValueError("stage_merge: num_keys keys, then payloads, for mine and the partner alike")
+    (B, S), dev = mine[0].shape, mine[0].device
+    for a, b in zip(mine, partner):
+        if a.dim() != 2 or b.dim() != 2 or a.shape != (B, S) or b.shape[1] != S:
+            raise ValueError("stage_merge: mine's operands are (B, S), the partner's (R, S)")
+        if a.device != dev or b.device != dev or a.dtype != b.dtype:
+            raise ValueError("stage_merge: operands on one device, the partner's of mine's types")
+    for k in mine[:num_keys]:
+        if k.dtype != torch.int32:
+            raise TypeError(f"keys must be int32, got {k.dtype}")
+    if len(rows) != B or not all(0 <= r < partner[0].shape[0] for r in rows):
+        raise ValueError("stage_merge: one partner row for each row of mine")
+    if keep_low.dtype != torch.bool or keep_low.shape != (B, 1) or keep_low.device != dev:
+        raise ValueError("stage_merge: keep_low is a (B, 1) bool tensor on the operands' device")
+    if dev.type == "cpu":
+        return stage_merge_ref(mine, partner, rows, keep_low, num_keys)
+    _require_cuda(mine[0], "stage_merge")
+    payloads = mine[num_keys:]
+    if (num_keys > STAGE_MAX_KEYS or len(payloads) > 1 or B > STAGE_MAX_ROWS
+            or any(p.dtype not in STAGE_PAYLOADS for p in payloads)):
+        raise ValueError(f"stage_merge: the kernel takes at most {STAGE_MAX_KEYS} keys, one "
+                         f"int32 or uint8 payload and {STAGE_MAX_ROWS} rows")
+    if S >= MAX_WIDTH:
+        raise ValueError("stage_merge: rows must be shorter than 2^30")
+    if any(t.stride(1) != 1 for t in mine + partner):
+        raise ValueError("stage_merge: operand columns must be contiguous (stride 1)")
+    out = [torch.empty((B, S), dtype=t.dtype, device=dev) for t in mine]
+    if B == 0 or S == 0:
+        return out
+    import ctypes
+
+    from ._build import load_library
+
+    lib = load_library()
+    cols = lambda ts: (ctypes.c_void_p * num_keys)(*(t.data_ptr() for t in ts[:num_keys]))
+    strides = lambda ts: (ctypes.c_int64 * num_keys)(*(t.stride(0) for t in ts[:num_keys]))
+    (pa, pa_stride), (pb, pb_stride), (po, _) = [
+        (ts[num_keys].data_ptr(), ts[num_keys].stride(0)) if payloads else (None, 0)
+        for ts in (mine, partner, out)]
+    src = (ctypes.c_int32 * B)(*rows)
+    keep_low = keep_low.contiguous()
+    splits = torch.empty((B, -(-S // MERGE_TILE) + 1), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.archon_stage_merge(
+            cols(mine), strides(mine), cols(partner), strides(partner), cols(out), num_keys, pa,
+            pa_stride, pb, pb_stride, po, payloads[0].element_size() if payloads else 0, src, B,
+            S, keep_low.data_ptr(), splits.data_ptr(), stream)
+    _launch_check(rc, "stage_merge")
+    stage_merge.launches += 1
+    return out
+
+
+stage_merge.launches = 0

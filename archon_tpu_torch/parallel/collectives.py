@@ -2,14 +2,16 @@
 
 The per-shard programs of ``parallel/megablock.py`` and ``megapipe.py`` are
 written once against ``ppermute``, ``all_gather``, ``psum`` and
-``axis_index`` (the ``jax.lax`` names).  Every per-shard tensor carries a
-leading axis over the shards that THIS process holds, so the same program
-text serves both backends:
+``axis_index`` (the ``jax.lax`` names), and ``ppermute_view``: the
+``ppermute`` result as (tensor, source rows), for a consumer that reads the
+rows where they lie.  Every per-shard tensor carries a leading axis over the
+shards that THIS process holds, so the same program text serves both
+backends:
 
 - ``InProcess``: all ``ns`` shards are the rows of an ``(ns, ...)`` tensor on
   one device.  ``ppermute`` is a reordering of the rows, ``axis_index`` a
   column ``arange(ns)``, ``all_gather`` a broadcast view, ``psum`` a sum over
-  the rows.  Taken whenever every device of the mesh is the same one: that
+  the rows, ``ppermute_view`` the tensor itself with the row map.  Taken whenever every device of the mesh is the same one: that
   is how the CPU runs 8 shards and how one GPU runs an 8-shard megablock,
   every local sort one ``sort_rows`` call for all shards.
 - ``Distributed``: one rank of a ``torch.distributed`` group a shard, the
@@ -60,6 +62,11 @@ class InProcess:
         # behind everything enqueued so far, once a ppermute
         return torch.stack([x[s] for s in src])
 
+    def ppermute_view(self, x: torch.Tensor, perm) -> tuple[torch.Tensor, list[int]]:
+        """``ppermute(x, perm)`` where the rows already lie: ``(x, src)``, row
+        ``d`` of the result being row ``src[d]`` of ``x``; nothing is copied."""
+        return x, _sources(perm, self.ns)
+
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """Every shard's ``x`` on every shard: (rows, ns, ...) for an ``x``
         of (rows, ...), as a broadcast view."""
@@ -103,6 +110,11 @@ class Distributed:
         for work in dist.batch_isend_irecv(ops):
             work.wait()
         return out
+
+    def ppermute_view(self, x: torch.Tensor, perm) -> tuple[torch.Tensor, list[int]]:
+        """``ppermute(x, perm)`` as ``(tensor, rows)``: the received tensor, whose
+        one row is the result's."""
+        return self.ppermute(x, perm), [0]
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         import torch.distributed as dist

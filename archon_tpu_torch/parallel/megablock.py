@@ -22,15 +22,17 @@ round (context k, quadrupling: the tuple (r@0, r@k, r@2k, r@3k) covers 4k):
 The per-shard programs are written once against the four collectives of
 ``parallel/collectives.py``; every per-shard tensor has a leading axis over
 the shards held by this process ((ns, S) in process, (1, S) for one rank of
-a ``torch.distributed`` group).  Every sort is ``ops.sort.sort_rows`` or
-``merge_rows`` along that layout, so on CUDA tensors each is K1 and K2
-launches for all shards at once, and on CPU tensors their plain twins.
+a ``torch.distributed`` group).  Every local sort is ``ops.sort.sort_rows``
+and every merge-split stage ``ops.sort.stage_merge`` along that layout, so on
+CUDA tensors each is one set of kernel launches for all shards at once (K1
+and K2; the stage's split pass and merge), and on CPU tensors their plain
+twins.
 
 Differences from the JAX program, none of which changes a value:
 
 - a merge-split stage sorts ``[mine, partner]``, two runs that are already
-  sorted, so at every shard size the stage is ONE merge level
-  (``merge_rows``) instead of a full re-sort;
+  sorted, so the stage is one merge of the kept half (``stage_merge``) that
+  reads the partner's rows where they lie, instead of a full re-sort;
 - nothing is compiled per k, so ``_rotate_dyn`` is one ``ppermute`` at the
   distance asked for, and the ``_make_*`` functions return plain closures,
   not cached programs;
@@ -40,7 +42,8 @@ Differences from the JAX program, none of which changes a value:
 Termination: the JAX loop runs dispatch-ahead (round k is enqueued before
 round k/4's surviving-tie count is read, at the price of one speculative
 round); this one reads the count first and wastes no round, see
-``_sharded_ranks``.  ``stats`` counts rounds and host reads.
+``_sharded_ranks``.  ``stats`` counts rounds, host reads and merge-split
+stages.
 """
 
 from __future__ import annotations
@@ -50,7 +53,7 @@ import torch
 
 from ..core.doubling import SENT_SMALL
 from ..ops.scan import blocked_cummax
-from ..ops.sort import merge_rows, sort_rows
+from ..ops.sort import sort_rows, stage_merge
 from ..utils.timing import span
 from .blocks import Mesh
 from .collectives import collectives
@@ -61,7 +64,8 @@ _I32 = torch.int32
 
 class _Counter:
     """Rounds run (the init not counted) and counts read back to the host
-    since the last ``reset``."""
+    since the last ``reset``; merge-split stages run, and of them those that
+ran through the stage merge's kernels."""
 
     def __init__(self):
         self.reset()
@@ -69,6 +73,8 @@ class _Counter:
     def reset(self):
         self.rounds = 0
         self.host_syncs = 0
+        self.stages = 0
+        self.stage_kernel = 0
 
 
 stats = _Counter()
@@ -97,12 +103,6 @@ def _bitonic_stages(ns: int):
     return stages
 
 
-def _stage_merge(both, num_keys: int):
-    """A merge-split stage as what it is: both halves of ``[mine, partner]``
-    are sorted, so one merge level gives the sorted row."""
-    return merge_rows(both[:num_keys], both[num_keys:])
-
-
 def _merge_split_sort(arrays, num_keys: int, ns: int, sid, coll):
     """Globally sort shard-distributed arrays by the first num_keys operands.
 
@@ -113,19 +113,17 @@ def _merge_split_sort(arrays, num_keys: int, ns: int, sid, coll):
     """
     with span("archon.megablock.local_sort"):
         arrays = sort_rows(arrays[:num_keys], arrays[num_keys:])
-    S = arrays[0].shape[1]
     for k_bit, m in _bitonic_stages(ns):
         with span("archon.megablock.stage"):
-            perm = _pairs(ns, m)
-            partner = [coll.ppermute(a, perm) for a in arrays]
-            both = [torch.cat([a, b], dim=1) for a, b in zip(arrays, partner)]
-            del partner
-            merged = _stage_merge(both, num_keys)
-            del both
+            # the partner's rows where they lie: in process, rows of these tensors
+            views = [coll.ppermute_view(a, _pairs(ns, m)) for a in arrays]
             # min half goes to the lower shard of the pair in an ascending
             # region ((sid & k_bit) == 0), to the higher shard otherwise
             keep_low = ((sid & m) == 0) == ((sid & k_bit) == 0)
-            arrays = [torch.where(keep_low, mg[:, :S], mg[:, S:]) for mg in merged]
+            launched = stage_merge.launches
+            arrays = stage_merge(arrays, [v for v, _ in views], views[0][1], keep_low, num_keys)
+            stats.stages += 1
+            stats.stage_kernel += stage_merge.launches - launched
     return arrays
 
 

@@ -72,11 +72,14 @@ Phases, each printing its own lines; any failure exits non-zero:
 14. the sharded megablock (``parallel/megablock``, ``parallel/megapipe``) as
     8 shards in process on the one card: every shape of sort it launches on
     a 4 MiB text block (``sort_rows`` at (8, S) and the merge-split stages'
-    ``merge_rows`` at (8, 2S); 5, 2 and 1 keys) held to its twins (K1, every
-    K2 level, the whole sort; a stage as one merge level against the same
-    stage re-sorted) and timed beside the stable ``torch.sort`` chain; the
-    stages of a 10^6-byte megablock (S = 125,000, runs padded) held alike;
-    ``bwt_megablock`` of that block equal to ``bwt_v3``, and of 2^20 zeros
+    ``stage_merge`` of (8, S) rows and their partners; 5, 2 and 1 keys) held
+    to its twins (K1, every K2 level, the whole sort; a stage as one
+    ``stage_merge`` call, no K1 or K2 launch, against ``stage_merge_ref`` and
+    against the same stage as one K2 merge level, ``merge_rows``) and timed
+    beside the stable ``torch.sort`` chain; the stages of a 10^6-byte
+    megablock (S = 125,000, each row's last tile masked) held alike;
+    ``bwt_megablock`` of the 4 MiB block equal to ``bwt_v3`` and timed beside
+    the same with every stage as one K2 level, and of 2^20 zeros
     and fibonacci; then 64 MiB as ONE megablock: init, each round, emit,
     hist and pack timed apart (device ms by CUDA events, and the host's
     enqueue ms), the whole ``encode_megablock`` with its launches, rounds,
@@ -195,7 +198,7 @@ def _max_err(got, want) -> int:
     return int((got.long() - want.long()).abs().max())
 
 
-KERNEL_ERR = {"sort_tiles": 0, "merge_level": 0}  # largest error against a twin so far
+KERNEL_ERR = {"sort_tiles": 0, "merge_level": 0, "stage_merge": 0}  # largest error against a twin
 
 
 def check_sort(name, keys, payloads, tag="kernels"):
@@ -772,6 +775,13 @@ def kernel_bounds(n: int, num_keys: int, carried: int, tile: int, n_pad: int) ->
     tuple_bytes = (carried + 1) * 4 * n_pad
     return {"sort_tiles": bound(carried * 4 * n + tuple_bytes, n * math.log2(tile) * carried),
             "merge_level": bound(2 * tuple_bytes, n_pad * carried)}
+
+
+def stage_bound_ms(n: int, num_keys: int, payload_bytes: int) -> float:
+    """The least time the card could take for one merge-split stage of ``n``
+    kept elements: every key and payload column read once and written once,
+    over the memory rate (a merge makes one comparison an element)."""
+    return 2 * n * (4 * num_keys + payload_bytes) / HBM_BYTES_PER_S * 1e3
 
 
 def check_sort_rows(name, keys, payloads, tag="sort_rows"):
@@ -1423,37 +1433,77 @@ def _hold_rows_sort(name, keys, payloads, levels=True):
     check_sort_rows(name, keys, payloads, "megablock")
 
 
-def _hold_stage_merge(name, keys, payloads, level=True):
-    """A merge-split stage of the megablock (``merge_rows``: rows of two
-    sorted runs, each padded to a multiple of 1024 columns, one K2 level)
-    against K2's twin on the same tuples, against the same stage re-sorted
-    by ``sort_rows`` (bit for bit) and against ``sort_rows_ref``; one K2
-    launch and no K1."""
+def _merge_level_stage(mine, partner, rows, keep_low, num_keys):
+    """A merge-split stage in the form that ``stage_merge`` replaced: the
+    partner's rows copied, ``[mine, partner]`` concatenated, one K2 merge
+    level over both halves (``merge_rows``), the kept half selected."""
     import torch
 
     from archon_tpu_torch.ops import sort as S
 
-    B, w = keys[0].shape
-    e2 = 0
-    if level:
-        mat = torch.stack([k.contiguous() for k in keys]).view(len(keys), B * w)
-        tuples, run = S._merge_tuples(mat, B, w // 2)
-        e2 = _max_err(S.merge_level(mat, tuples, run), S.merge_level_ref(mat, tuples, run))
+    w = mine[0].shape[1]
+    both = [torch.cat([a, torch.stack([b[r] for r in rows])], dim=1) for a, b in zip(mine, partner)]
+    merged = S.merge_rows(both[:num_keys], both[num_keys:])
+    return [torch.where(keep_low, mg[:, :w], mg[:, w:]) for mg in merged]
+
+
+_merge_level_stage.launches = 0  # megablock reads its stage op's launch count
+
+
+def _captured_stages(run) -> list:
+    """The merge-split stages that ``run()`` makes through
+    ``megablock.stage_merge``, as (mine, partner, rows, keep_low, num_keys):
+    the first of each shape (key count, payload count, operand shape)."""
+    from archon_tpu_torch.parallel import megablock as mb
+
+    real, seen, shapes = mb.stage_merge, [], set()
+
+    def capture(mine, partner, rows, keep_low, num_keys):
+        shape = (num_keys, len(mine) - num_keys, tuple(mine[0].shape))
+        if shape not in shapes:
+            shapes.add(shape)
+            seen.append((list(mine), list(partner), list(rows), keep_low, num_keys))
+        out = real(mine, partner, rows, keep_low, num_keys)
+        capture.launches = real.launches
+        return out
+
+    capture.launches = real.launches
+    mb.stage_merge = capture
+    try:
+        run()
+    finally:
+        mb.stage_merge = real
+    return seen
+
+
+def _stage_shape(stage) -> tuple:
+    mine, _, _, _, nk = stage
+    return nk, len(mine) - nk, tuple(mine[0].shape)
+
+
+def _hold_stage_merge(name, stage):
+    """A merge-split stage of the megablock (``stage_merge``: one split pass
+    and one merge launch, no K1 or K2) against ``stage_merge_ref`` and
+    against the same stage as one K2 merge level, bit for bit."""
+    import torch
+
+    from archon_tpu_torch.ops import sort as S
+
+    mine, partner, rows, keep_low, nk = stage
     S.sort_tiles.launches = S.merge_level.launches = 0
-    pad = S.merge_rows.pad
-    got = S.merge_rows(keys, payloads)
-    k1, k2, pad = S.sort_tiles.launches, S.merge_level.launches, S.merge_rows.pad - pad
-    resorted = S.sort_rows(keys, payloads)
-    want = S.sort_rows_ref(keys, payloads)
-    e3 = max(_max_err(g, x) for g, x in zip(got, want))
-    e4 = max(_max_err(g, x) for g, x in zip(got, resorted))
+    calls = S.stage_merge.launches
+    got = S.stage_merge(mine, partner, rows, keep_low, nk)
+    k1, k2, st = S.sort_tiles.launches, S.merge_level.launches, S.stage_merge.launches - calls
+    e1 = max(_max_err(g, x) for g, x in zip(got, S.stage_merge_ref(mine, partner, rows, keep_low, nk)))
+    e2 = max(_max_err(g, x) for g, x in zip(got, _merge_level_stage(mine, partner, rows, keep_low, nk)))
     torch.cuda.synchronize()
-    KERNEL_ERR["merge_level"] = max(KERNEL_ERR["merge_level"], e2, e3, e4)
-    print(f"[megablock] {name}: ({B}, {w}) keys={len(keys)} payloads={len(payloads)} one merge "
-          f"level, {pad} padding tuples: launches K1 {k1}, K2 {k2}; against K2's twin {e2}, "
-          f"against sort_rows_ref {e3}, against the stage re-sorted by sort_rows {e4}")
-    if e2 or e3 or e4 or (k1, k2) != (0, 1):
-        raise AssertionError(f"the one-level stage disagrees or launched otherwise: {name}")
+    KERNEL_ERR["stage_merge"] = max(KERNEL_ERR["stage_merge"], e1, e2)
+    B, w = mine[0].shape
+    print(f"[megablock] {name}: ({B}, {w}) rows, keys={nk} payloads={len(mine) - nk}, partner rows "
+          f"{rows}, keep_low {keep_low.view(-1).tolist()}: launches stage_merge {st}, K1 {k1}, K2 "
+          f"{k2}; against stage_merge_ref {e1}, against the stage as one K2 level {e2}")
+    if e1 or e2 or (st, k1, k2) != (1, 0, 0):
+        raise AssertionError(f"the stage merge disagrees or launched otherwise: {name}")
 
 
 def _device_and_enqueue_ms(fn):
@@ -1494,39 +1544,38 @@ def phase_megablock(text: bytes):
 
     def sorts_of(data):
         run = lambda: mb.bwt_megablock(data, mesh, "small")
-        return (_captured_sorts((mb,), run, attr="sort_rows"),
-                _captured_sorts((mb,), run, attr="merge_rows"))
+        return _captured_sorts((mb,), run, attr="sort_rows"), _captured_stages(run)
 
     # ---- one 4 MiB text block, S = 512 KiB: every sort shape against its twins
     block = np.frombuffer(text[: 4 * MIB][::-1], np.uint8)
     arr = torch.from_numpy(block.copy()).cuda()
     local, stages = sorts_of(block)
-    shapes = sorted((len(k), len(pl), tuple(k[0].shape)) for k, pl in local + stages)
     Sb = len(block) // ns
-    if shapes != sorted([(nk, npl, (ns, w)) for nk, npl in ((5, 0), (2, 0), (1, 1))
-                         for w in (Sb, 2 * Sb)]):
+    want_shapes = sorted((nk, npl, (ns, Sb)) for nk, npl in ((5, 0), (2, 0), (1, 1)))
+    shapes = (sorted((len(k), len(pl), tuple(k[0].shape)) for k, pl in local),
+              sorted(map(_stage_shape, stages)))
+    if shapes != (want_shapes, want_shapes):
         raise AssertionError(f"the megablock's sorts have other shapes than expected: {shapes}")
     for keys, payloads in local:
         _hold_rows_sort(f"4 MiB block, local sort, {len(keys)} keys", keys, payloads)
-    for keys, payloads in stages:
-        _hold_stage_merge(f"4 MiB block, stage, {len(keys)} keys", keys, payloads)
-    for (keys, payloads), (skeys, spayloads) in zip(local, stages):
+    for stage in stages:
+        _hold_stage_merge(f"4 MiB block, stage, {stage[4]} keys", stage)
+    for (keys, payloads), stage in zip(local, stages):
         ms = _time_ms(lambda: S.sort_rows(keys, payloads))
         chain = _time_ms(lambda: S.sort_rows_ref(keys, payloads))
-        one = _time_ms(lambda: S.merge_rows(skeys, spayloads))
-        resort = _time_ms(lambda: S.sort_rows(skeys, spayloads))
-        schain = _time_ms(lambda: S.sort_rows_ref(skeys, spayloads))
+        one = _time_ms(lambda: S.stage_merge(*stage))
+        level = _time_ms(lambda: _merge_level_stage(*stage))
+        schain = _time_ms(lambda: S.stage_merge_ref(*stage))
         print(f"[megablock] 4 MiB block, {len(keys)} keys + {len(payloads)} payloads: local "
-              f"sort_rows ({ns}, {Sb}) {ms:.3f} ms (torch.sort chain {chain:.3f}); a stage "
-              f"({ns}, {2 * Sb}) as one merge level {one:.3f} ms, re-sorted by sort_rows "
-              f"{resort:.3f} (torch.sort chain {schain:.3f})")
+              f"sort_rows ({ns}, {Sb}) {ms:.3f} ms (torch.sort chain {chain:.3f}); a stage of "
+              f"({ns}, {Sb}) rows as stage_merge {one:.3f} ms, as one K2 merge level {level:.3f} "
+              f"(stage_merge_ref, the torch.sort chain, {schain:.3f})")
     del local, stages
 
-    # ---- a ragged shard size: 10^6 B, S = 125,000 (S mod 1024 = 72), each stage pads its runs
+    # ---- a ragged shard size: 10^6 B, S = 125,000 (S mod 2048 = 72): each row's last tile masked
     ragged = np.frombuffer(text[:1_000_000], np.uint8)
-    for keys, payloads in _captured_sorts((mb,), lambda: mb.bwt_megablock(ragged, mesh, "small"),
-                                          attr="merge_rows"):
-        _hold_stage_merge(f"10^6 B block, stage, {len(keys)} keys", keys, payloads)
+    for stage in _captured_stages(lambda: mb.bwt_megablock(ragged, mesh, "small")):
+        _hold_stage_merge(f"10^6 B block, stage, {stage[4]} keys", stage)
 
     want, v3_ms, _ = _block_call("megablock", "4 MiB text block, bwt_v3 (for comparison)",
                                  lambda: bwt_v3(arr, "small"))
@@ -1534,21 +1583,25 @@ def phase_megablock(text: bytes):
     (L, base), _, launches4 = _counted("bwt_megablock 4 MiB",
                                        lambda: mb.bwt_megablock(block, mesh, "small"))
     rounds4, syncs4 = mb.stats.rounds, mb.stats.host_syncs
+    stages4 = (mb.stats.stages, mb.stats.stage_kernel)
+    if stages4[0] != stages4[1] or not stages4[0]:
+        raise AssertionError(f"a stage of the 4 MiB megablock missed the stage kernels: {stages4}")
     _same_bwt("bwt_megablock, 4 MiB text block", (L.reshape(-1), base), want)
     mega_ms = _events_ms(lambda: mb.bwt_megablock(block, mesh, "small"), 3)
-    real_stage = mb._stage_merge
-    mb._stage_merge = lambda both, nk: S.sort_rows(both[:nk], both[nk:])
+    real_stage = mb.stage_merge
+    mb.stage_merge = _merge_level_stage
     try:
         got = mb.bwt_megablock(block, mesh, "small")
-        resort_ms = _events_ms(lambda: mb.bwt_megablock(block, mesh, "small"), 3)
+        level_ms = _events_ms(lambda: mb.bwt_megablock(block, mesh, "small"), 3)
     finally:
-        mb._stage_merge = real_stage
-    _same_bwt("bwt_megablock with re-sorted stages", (got[0].reshape(-1), got[1]), want)
+        mb.stage_merge = real_stage
+    _same_bwt("bwt_megablock with every stage one K2 level", (got[0].reshape(-1), got[1]), want)
     print(f"[megablock] 4 MiB text block, ns {ns}: bwt_megablock {mega_ms:.3f} ms = "
           f"{mega_ms / v3_ms:.1f}x bwt_v3's {v3_ms:.3f} (CUDA events, incl. the copy to the card "
-          f"and the host reads); rounds {rounds4}, host reads {syncs4}, "
-          f"launches {launches4}; (L, base) == bwt_v3's; with every stage re-sorted (the JAX "
-          f"program's form) {resort_ms:.3f} ms, the same (L, base)")
+          f"and the host reads); rounds {rounds4}, host reads {syncs4}, launches {launches4}, "
+          f"stages {stages4[0]}, all through stage_merge; (L, base) == bwt_v3's; with every stage "
+          f"as one K2 merge level (the form stage_merge replaced) {level_ms:.3f} ms, the same "
+          f"(L, base)")
 
     # ---- Gauntlet: the tie group that spans every shard
     for name in ("zeros", "fibonacci"):
@@ -1597,6 +1650,10 @@ def phase_megablock(text: bytes):
     blob, enc_dt, launches = _counted(
         "encode_megablock 64 MiB", lambda: megapipe.encode_megablock(text, mesh, "a4", "var"))
     rounds, syncs = mb.stats.rounds, mb.stats.host_syncs
+    launches["stage_merge"] = mb.stats.stage_kernel
+    if mb.stats.stage_kernel != mb.stats.stages:
+        raise AssertionError(f"a stage of the 64 MiB megablock missed the stage kernels: "
+                             f"{mb.stats.stage_kernel} of {mb.stats.stages}")
     peak = torch.cuda.max_memory_allocated() / MIB
     t0 = time.perf_counter()
     back = megapipe.decode_megablock(blob)
@@ -1608,7 +1665,7 @@ def phase_megablock(text: bytes):
     packed = port.encode_file(text, "a4", 4 * MIB, pack=True, impl="micro", device="cuda")
     print(f"[megablock] encode_megablock a4 var, 64 MiB, ns {ns}: {enc_dt:.4f} s = "
           f"{n / 1e6 / enc_dt:.2f} MB/s (host clock); rounds {rounds}, host "
-          f"reads {syncs}, launches {launches}, peak device memory {peak:.0f} MiB = "
+          f"reads {syncs}, launches {launches} (stage_merge: one a stage), peak device memory {peak:.0f} MiB = "
           f"{peak * MIB / n:.0f} B per input byte; decode_megablock {dec_dt:.4f} s, round trip ok; "
           f"ATM1 {len(blob)} bytes against ATA2 (4 MiB blocks) {len(packed)}: "
           f"{len(blob) / len(packed):.2f}x")
@@ -1618,33 +1675,36 @@ def phase_megablock(text: bytes):
     for keys, payloads in local:
         _hold_rows_sort(f"64 MiB megablock, local sort, {len(keys)} keys", keys, payloads,
                         levels=False)
-    for keys, payloads in stages:
-        _hold_stage_merge(f"64 MiB megablock, stage, {len(keys)} keys", keys, payloads,
-                          level=False)
+    for stage in stages:
+        _hold_stage_merge(f"64 MiB megablock, stage, {stage[4]} keys", stage)
     keys5 = next(k for k, _ in local if len(k) == 5)
-    stage5 = next(k for k, _ in stages if len(k) == 5)
+    stage5 = next(st for st in stages if st[4] == 5)
+    stage1 = next(st for st in stages if st[4] == 1)  # the route-back: 1 key + an int32 payload
     del local, stages
     mat = torch.stack(keys5).view(5, n)
     k1_ms = _time_ms(lambda: S.sort_tiles(mat))
     tuples = S.sort_tiles(mat)
     first_ms = _time_ms(lambda: S.merge_level(mat, tuples, S.TILE))
     del mat, tuples, keys5
-    smat = torch.stack(stage5).view(5, 2 * n)
-    del stage5
-    index = torch.arange(2 * n, dtype=torch.int32, device="cuda")
-    stuples = torch.cat([smat[:4], index[None]])
-    stage_ms = _time_ms(lambda: S.merge_level(smat, stuples, Sm))
+    stage_ms = _time_ms(lambda: S.stage_merge(*stage5))
+    stage1_ms = _time_ms(lambda: S.stage_merge(*stage1))
+    level_ms = _time_ms(lambda: _merge_level_stage(*stage5))
+    del stage5, stage1
     b1 = kernel_bounds(n, 5, 4, S.TILE, n)
-    b2 = kernel_bounds(2 * n, 5, 4, S.TILE, 2 * n)
+    b5, b1p = stage_bound_ms(n, 5, 0), stage_bound_ms(n, 1, 4)
     print(f"[megablock] kernels at the 64 MiB shapes, 5 keys (4 carried) + index: K1 over "
           f"({ns}, {Sm}) {k1_ms:.3f} ms (bound {b1['sort_tiles']['bound_ms']:.3f}); one K2 level "
-          f"there {first_ms:.3f} (bound {b1['merge_level']['bound_ms']:.3f}); the stage's K2 "
-          f"level at run {Sm} over ({ns}, {2 * Sm}) {stage_ms:.3f} "
-          f"(bound {b2['merge_level']['bound_ms']:.3f})")
+          f"there {first_ms:.3f} (bound {b1['merge_level']['bound_ms']:.3f}); a stage of "
+          f"({ns}, {Sm}) rows by stage_merge: 5 keys {stage_ms:.3f} (bound {b5:.3f}; as one K2 "
+          f"merge level {level_ms:.3f}), 1 key + int32 {stage1_ms:.3f} (bound {b1p:.3f})")
     shapes = {"sort_tiles": {"ms_megablock": k1_ms,
                              "bound_ms_megablock": b1["sort_tiles"]["bound_ms"]},
-              "merge_level": {"ms_megablock": stage_ms,
-                              "bound_ms_megablock": b2["merge_level"]["bound_ms"]}}
+              "merge_level": {"ms_megablock": first_ms,
+                              "bound_ms_megablock": b1["merge_level"]["bound_ms"]},
+              "stage_merge": {"ms_megablock": stage_ms, "bound_ms_megablock": b5,
+                              "ms_megablock_1key_int32": stage1_ms,
+                              "bound_ms_megablock_1key_int32": b1p,
+                              "ms_megablock_as_k2_level": level_ms}}
     return launches, launches4, shapes
 
 
@@ -1804,7 +1864,9 @@ def main() -> int:
          "launches_sais_block": sais_block[name], "launches_fast_block": fast_block[name],
          "max_abs_err": KERNEL_ERR[name], **stats[name], **mega_shapes[name]}
         for name in ("sort_tiles", "merge_level")
-    ] + pack_kernels
+    ] + [{"name": "stage_merge", "route": "cuda", "source": SOURCE, "replaces": None,
+          "launches_megablock": mega_launches["stage_merge"],
+          "max_abs_err": KERNEL_ERR["stage_merge"], **mega_shapes["stage_merge"]}] + pack_kernels
     print(json.dumps({"kernels": kernels, "pack": pack_stats}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -293,35 +293,84 @@ def _card_mesh(cuda_device, ns=8):
 @pytest.mark.parametrize("n", [1 << 20, 1_000_000], ids=["aligned", "ragged"])
 def test_megablock_sort_shapes_match_twins_on_card(cuda_device, monkeypatch, n):
     """Every sort a ``bwt_megablock`` of 8 shards launches (5, 2 and 1 keys;
-    ``sort_rows`` at (8, S), the stages' ``merge_rows`` at (8, 2S)) against
-    ``sort_rows_ref``; a stage as one K2 level against the same stage
-    re-sorted, bit for bit.  At 1 MiB S is a multiple of 1024; at 10^6 B
-    S = 125,000 is not (S mod 1024 = 72), so each stage pads its runs."""
+    ``sort_rows`` at (8, S), the stages' ``stage_merge`` of (8, S) rows with
+    their partners' rows in place) against its twin, bit for bit; each stage
+    one ``stage_merge`` call (its split pass and its merge) and no K1 or K2
+    launch.  At 1 MiB S is a multiple of the stage's 2048-output tile; at
+    10^6 B S = 125,000 is not (S mod 2048 = 72), so each row's last tile is
+    masked.  (L, base) equals ``bwt_v3``'s."""
     from archon_tpu_torch.parallel import megablock as mb
 
-    seen = {"sort_rows": [], "merge_rows": []}
-    for name in seen:
-        real = getattr(mb, name)
-        monkeypatch.setattr(mb, name, lambda k, p=(), name=name, real=real: seen[name].append(
-            (list(k), list(p))) or real(k, p))
+    seen = {"sort_rows": [], "stage_merge": []}
+    real_sort, real_stage = mb.sort_rows, mb.stage_merge
+    monkeypatch.setattr(mb, "sort_rows", lambda k, p=(): seen["sort_rows"].append(
+        (list(k), list(p))) or real_sort(k, p))
+
+    def stage(mine, partner, rows, keep_low, nk):
+        before = (tsort.sort_tiles.launches, tsort.merge_level.launches, real_stage.launches)
+        out = real_stage(mine, partner, rows, keep_low, nk)
+        launches = (tsort.sort_tiles.launches, tsort.merge_level.launches, real_stage.launches)
+        seen["stage_merge"].append((list(mine), list(partner), rows, keep_low, nk, out, before,
+                                    launches))
+        stage.launches = real_stage.launches
+        return out
+
+    stage.launches = real_stage.launches
+    monkeypatch.setattr(mb, "stage_merge", stage)
     block = np.frombuffer(text_like(n, 6), np.uint8)
+    mb.stats.reset()
     L, base = mb.bwt_megablock(block, _card_mesh(cuda_device), "small")
     Lw, bw = fast2.bwt_v3(torch.from_numpy(block.copy()).to(cuda_device), "small")
     assert torch.equal(L.reshape(-1), Lw) and base == bw
     monkeypatch.undo()
-    shapes = lambda calls: {(len(k), len(p), tuple(k[0].shape)) for k, p in calls}
     S = n // 8
-    assert shapes(seen["sort_rows"]) == {(5, 0, (8, S)), (2, 0, (8, S)), (1, 1, (8, S))}
-    assert shapes(seen["merge_rows"]) == {(5, 0, (8, 2 * S)), (2, 0, (8, 2 * S)), (1, 1, (8, 2 * S))}
+    assert {(len(k), len(p), tuple(k[0].shape)) for k, p in seen["sort_rows"]} == {
+        (5, 0, (8, S)), (2, 0, (8, S)), (1, 1, (8, S))}
+    assert {(nk, len(mine) - nk, tuple(mine[0].shape)) for mine, *_, nk, _, _, _ in
+            seen["stage_merge"]} == {(5, 0, (8, S)), (2, 0, (8, S)), (1, 1, (8, S))}
+    assert mb.stats.stage_kernel == mb.stats.stages == len(seen["stage_merge"]) > 0
     for keys, payloads in seen["sort_rows"][:6]:
         got, want = tsort.sort_rows(keys, payloads), tsort.sort_rows_ref(keys, payloads)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
-    for keys, payloads in seen["merge_rows"][:8] + seen["merge_rows"][-8:]:
-        before = (tsort.sort_tiles.launches, tsort.merge_level.launches)
-        got = tsort.merge_rows(keys, payloads)
-        assert (tsort.sort_tiles.launches, tsort.merge_level.launches) == (before[0], before[1] + 1)
-        assert all(torch.equal(g, w) for g, w in zip(got, tsort.sort_rows_ref(keys, payloads)))
-        assert all(torch.equal(g, w) for g, w in zip(got, tsort.sort_rows(keys, payloads)))
+    for mine, partner, rows, keep_low, nk, out, before, after in seen["stage_merge"]:
+        assert after == (before[0], before[1], before[2] + 1)
+        assert all(partner[j] is mine[j] for j in range(len(mine)))  # in process: in place
+    for mine, partner, rows, keep_low, nk, out, _, _ in seen["stage_merge"][:8] + seen["stage_merge"][-8:]:
+        want = tsort.stage_merge_ref(mine, partner, rows, keep_low, nk)
+        assert all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(out, want))
+
+
+@pytest.mark.parametrize("nk,pay", [(5, None), (1, torch.int32), (1, torch.uint8)],
+                         ids=["5keys", "1key-int32", "1key-uint8"])
+def test_stage_merge_at_the_enwik8_stage_shape(cuda_device, nk, pay):
+    """One merge-split stage of a 10^8-byte megablock over 8 shards:
+    ``stage_merge`` of (8, 12,500,000) rows, each row's partner row ``b ^ 1``
+    of the same tensors, rows keeping the low half and rows keeping the high
+    half, against ``stage_merge_ref`` bit for bit; real all-0x7FFFFFFF
+    elements in both runs; one call, no K1 or K2 launch."""
+    B, S = 8, 12_500_000
+    g = torch.Generator(device=cuda_device).manual_seed(18)
+    keys = [torch.randint(0, 3 if nk > 1 else 1000, (B, S), generator=g, dtype=torch.int32,
+                          device=cuda_device) for _ in range(min(nk, 4))]
+    if nk == 5:  # the megablock's fifth key is a position: unique
+        keys.append(torch.randperm(B * S, generator=g, device=cuda_device)
+                    .to(torch.int32).view(B, S))
+    for k in keys:
+        k[:, 7::9973] = tsort.PAD_KEY
+    payloads = [] if pay is None else [torch.randint(-(1 << 31) if pay == torch.int32 else 0,
+                                                     (1 << 31) - 1 if pay == torch.int32 else 256,
+                                                     (B, S), generator=g, device=cuda_device,
+                                                     dtype=pay)]
+    mine = tsort.sort_rows(keys, payloads)
+    del keys, payloads
+    rows = [b ^ 1 for b in range(B)]
+    keep_low = torch.tensor([[b % 3 != 1] for b in range(B)], device=cuda_device)
+    before = (tsort.sort_tiles.launches, tsort.merge_level.launches, tsort.stage_merge.launches)
+    got = tsort.stage_merge(mine, mine, rows, keep_low, nk)
+    after = (tsort.sort_tiles.launches, tsort.merge_level.launches, tsort.stage_merge.launches)
+    assert after == (before[0], before[1], before[2] + 1)
+    want = tsort.stage_merge_ref(mine, mine, rows, keep_low, nk)
+    assert all(x.dtype == w.dtype and torch.equal(x, w) for x, w in zip(got, want))
 
 
 @pytest.mark.parametrize("nk,npay", [(5, 0), (1, 1)], ids=["5keys", "1key-payload"])

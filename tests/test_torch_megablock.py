@@ -5,6 +5,8 @@ golden model: the same seeded bytes through both, integers compared exactly
 eight entries of ``cpu``: the sorts take their plain twins), and once as two
 spawned ranks of a gloo group."""
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -165,26 +167,144 @@ def test_sharded_bwt_emission():
 
 
 def test_merge_level_stages_equal_the_resort_stages(monkeypatch):
-    """At a ragged shard size (S = 1064, so each stage pads both runs to
-    1024 columns more): every stage as one merge level in the kernels'
-    layout (``_merge_rows_kernels``, on K2's twin) gives the same suffix
-    array as with every stage re-sorted by ``sort_rows``, and the golden
-    model's; and the loop counts its rounds and host reads (one read after
-    the init and one after each round: no round runs past resolution)."""
+    """At a ragged shard size (S = 1064): every stage through ``stage_merge``
+    (its twin here) gives the same suffix array as every stage as one merge
+    level in K2's layout (``_merge_rows_kernels`` on K2's twin, each run
+    padded to 2048 columns), and the golden model's; and the loop counts its
+    rounds and host reads (one read after the init and one after each round:
+    no round runs past resolution) and its stages, none through the kernels
+    on the CPU."""
     S_ragged = 1064
     arr = np.frombuffer(text_like(2 * S_ragged, seed=8), np.uint8)
     mesh = _mesh(2)
-    monkeypatch.setattr(mb, "merge_rows", tsort._merge_rows_kernels)
-    calls, pad = tsort.merge_rows.calls, tsort.merge_rows.pad
     mb.stats.reset()
     got = mb.suffix_array_sharded(arr, mesh, "large")
-    staged = tsort.merge_rows.calls - calls
+    staged = mb.stats.stages
     assert staged >= 3 and mb.stats.host_syncs == mb.stats.rounds + 1 >= 2
-    assert tsort.merge_rows.pad - pad == staged * 2 * 2 * (2048 - S_ragged)
-    monkeypatch.setattr(mb, "_stage_merge", lambda both, nk: tsort.sort_rows(both[:nk], both[nk:]))
+    assert mb.stats.stage_kernel == 0
+
+    def merge_level_stage(mine, partner, rows, keep_low, num_keys):
+        S = mine[0].shape[1]
+        both = [torch.cat([a, b[rows]], dim=1) for a, b in zip(mine, partner)]
+        merged = tsort._merge_rows_kernels(both[:num_keys], both[num_keys:])
+        return [torch.where(keep_low, mg[:, :S], mg[:, S:]) for mg in merged]
+
+    merge_level_stage.launches = 0
+    monkeypatch.setattr(mb, "stage_merge", merge_level_stage)
+    calls, pad = tsort.merge_rows.calls, tsort.merge_rows.pad
     assert got.tolist() == mb.suffix_array_sharded(arr, mesh, "large").tolist()
     assert tsort.merge_rows.calls - calls == staged
+    assert tsort.merge_rows.pad - pad == staged * 2 * 2 * (2048 - S_ragged)
     assert got.tolist() == golden.suffix_array(arr, "large").tolist()
+
+
+def _sorted_rows(rng, R, S, nk, pay):
+    """Operands of R rows of S, each row sorted by its nk keys (numpy's
+    stable lexsort): keys 0..3 with many ties, a fifth key a permutation of
+    each row, real all-0x7FFFFFFF elements planted; then one payload of the
+    type ``pay``, if any, unique values where it can hold them."""
+    keys = [rng.integers(0, 3, (R, S)).astype(np.int32) for _ in range(min(nk, 4))]
+    if nk == 5:
+        keys.append(np.stack([rng.permutation(S) for _ in range(R)]).astype(np.int32))
+    for k in keys:
+        k[:, 3::41] = tsort.PAD_KEY
+    ops = list(keys)
+    if pay is not None:
+        ops.append((rng.permutation(R * S).reshape(R, S) - R * S // 2).astype(pay))
+    order = np.stack([np.lexsort(tuple(k[r] for k in reversed(keys))) for r in range(R)])
+    return [np.take_along_axis(o, order, axis=1) for o in ops]
+
+
+def _stage_want(mine, partner, rows, keep_low, nk):
+    """The stage by numpy: row b is half of the stable sort of
+    ``[mine[b], partner[rows[b]]]``, mine first on equal keys."""
+    S = mine[0].shape[1]
+    out = [np.empty_like(m) for m in mine]
+    for b, r in enumerate(rows):
+        both = [np.concatenate([m[b], p[r]]) for m, p in zip(mine, partner)]
+        order = np.lexsort(tuple(reversed(both[:nk])))
+        half = order[:S] if keep_low[b] else order[S:]
+        for o, x in zip(out, both):
+            o[b] = x[half]
+    return out
+
+
+@pytest.mark.parametrize("partner", ["in_place", "separate"])
+@pytest.mark.parametrize("pay", [None, np.int32, np.uint8], ids=["no_payload", "int32", "uint8"])
+@pytest.mark.parametrize("nk", [1, 2, 5])
+def test_stage_merge_keeps_the_half_of_the_stable_merge(nk, pay, partner):
+    """``stage_merge`` on the CPU (its twin) against the stage written out in
+    numpy, bit for bit: 1, 2 and 5 keys; no payload, an int32 and a uint8
+    one; rows of a ragged length and of a multiple of the kernel's 2048-output
+    tile; rows keeping the low half and rows keeping the high half; many ties
+    across the two runs (mine first); the partner as rows of the same tensors
+    (``b ^ 1``, as in process) and as a separate tensor with a row map."""
+    rng = np.random.default_rng(100 * nk + (0 if pay is None else np.dtype(pay).itemsize))
+    keep_low = np.array([True, False, False, True])
+    for S in (2 * tsort.MERGE_TILE + 37, 2 * tsort.MERGE_TILE):
+        mine = _sorted_rows(rng, 4, S, nk, pay)
+        if partner == "in_place":
+            other, rows = mine, [1, 0, 3, 2]
+        else:
+            other, rows = _sorted_rows(rng, 3, S, nk, pay), [2, 0, 0, 1]
+        got = tsort.stage_merge([torch.from_numpy(x) for x in mine],
+                                [torch.from_numpy(x) for x in other], rows,
+                                torch.from_numpy(keep_low)[:, None], nk)
+        want = _stage_want(mine, other, rows, keep_low, nk)
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert g.dtype == torch.from_numpy(w).dtype and np.array_equal(g.numpy(), w)
+
+
+def test_stage_merge_refuses_what_it_does_not_take():
+    """Operand counts, shapes, row maps and ``keep_low`` are checked on every
+    device; a tensor on neither the CPU nor a CUDA device raises and takes no
+    twin."""
+    x = torch.zeros((2, 8), dtype=torch.int32)
+    keep = torch.ones((2, 1), dtype=torch.bool)
+    with pytest.raises(ValueError, match="payloads"):
+        tsort.stage_merge([x, x], [x], [1, 0], keep, 1)
+    with pytest.raises(ValueError, match="one partner row"):
+        tsort.stage_merge([x], [x], [1], keep, 1)
+    with pytest.raises(ValueError, match="one partner row"):
+        tsort.stage_merge([x], [x], [1, 2], keep, 1)
+    with pytest.raises(ValueError, match="keep_low"):
+        tsort.stage_merge([x], [x], [1, 0], keep[:1], 1)
+    with pytest.raises(TypeError, match="int32"):
+        tsort.stage_merge([x.long()], [x.long()], [1, 0], keep, 1)
+    meta = x.to("meta")
+    with pytest.raises(ValueError, match="CPU or a CUDA device"):
+        tsort.stage_merge([meta], [meta], [1, 0], keep.to("meta"), 1)
+
+
+def test_merge_split_sort_counts_its_stages():
+    """A merge-split sort over 8 shards runs log2(8) (log2(8) + 1) / 2 = 6
+    stages; on the CPU none goes through the stage kernels."""
+    coll = collectives(_mesh(8), "sp")
+    pos = np.random.default_rng(4).permutation(N).astype(np.int32)
+    mb.stats.reset()
+    (got,) = mb._merge_split_sort([coll.shard(torch.from_numpy(pos))], 1, NS, coll.axis_index(),
+                                  coll)
+    assert (mb.stats.stages, mb.stats.stage_kernel) == (6, 0)
+    assert got.reshape(-1).tolist() == list(range(N))
+
+
+def test_stage_kernel_pct_reads_the_stage_counters(monkeypatch):
+    """The benchmark's ``megablock.stage_kernel_pct``: 100 stage_kernel /
+    stages, nothing without stages, and nothing from a program without the
+    counter."""
+    from portbench.harness import Window, load_reader, read_counter
+
+    reader = load_reader("megablock.stage_kernel_pct")
+    kernel, stages = reader.COUNTERS
+    assert reader.read(Window(counters={kernel: 42, stages: 42})) == 100.0
+    assert reader.read(Window(counters={kernel: 0, stages: 42})) == 0.0
+    assert reader.read(Window(counters={kernel: 0, stages: 0})) is None
+    for path in reader.COUNTERS:
+        read_counter(path)
+    monkeypatch.setattr(mb, "stats", types.SimpleNamespace(rounds=0, host_syncs=0))
+    reader = load_reader("megablock.stage_kernel_pct")
+    assert reader.COUNTERS == () and reader.read(Window()) is None
 
 
 def _two_run_rows(rng, B, S, nk):
